@@ -1,0 +1,66 @@
+// C interface of the nerve_tpu_torch CUDA kernels (bound with ctypes by
+// nerve_tpu_torch/ops/_build.py).
+//
+// Every entry point launches on `stream`, never synchronises, allocates
+// nothing, and returns cudaGetLastError() as an int (0 = success). Tensors
+// are contiguous NHWC. `dtype` is NT_F32 or NT_BF16; weights and biases are
+// always float32 (the wrapper rounds them through the activation dtype
+// first where the reference does).
+#pragma once
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+enum { NT_F32 = 0, NT_BF16 = 1 };
+
+// Depth-to-space into packed rows: (B, H, W, C*s*s) -> (B, H*s, W*s*C).
+int nt_d2s_packed(const void* x, void* out, int b, int h, int w, int c, int s,
+                  int dtype, void* stream);
+
+// Cost volume (B, H, W, C) x2 -> (B, H, W, (2d+1)^2), 1 <= d <= 4.
+int nt_correlation(const void* f1, const void* f2, void* out, int b, int h,
+                   int w, int c, int d, int dtype, void* stream);
+
+// One SAME 3x3 or 1x1 conv layer. Reads channels [0, cin) of x (channel
+// stride x_cstride), writes channels [out_coff, out_coff + cout) of out
+// (channel stride out_cstride). w is HWIO (ksize, ksize, cin, cout).
+int nt_conv2d(const void* x, int x_cstride, int cin, const float* w,
+              const float* bias, void* out, int out_cstride, int out_coff,
+              int cout, int b, int h, int w_, int ksize, int relu, int dtype,
+              void* stream);
+
+// RDB local feature fusion: out = (cat . w + bias) * res_scale + cat[..., :c]
+// with cat (B, H, W, ccat), w (ccat, c), out (B, H, W, c).
+int nt_rdb_lff(const void* cat, int ccat, const float* w, const float* bias,
+               void* out, int c, int b, int h, int w_, float res_scale,
+               int dtype, void* stream);
+
+const char* nt_error_string(int err);
+
+#ifdef __cplusplus
+}
+#endif
+
+#ifdef __CUDACC__
+#include <cuda_bf16.h>
+
+// Tensor-core building blocks (sm_80+): ldmatrix of four 8x8 b16 matrices
+// from shared memory, and one bf16 m16n8k16 product accumulated in float32.
+__device__ __forceinline__ unsigned nt_smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void nt_ldmatrix_x4(const void* p, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(nt_smem_addr(p)));
+}
+__device__ __forceinline__ void nt_mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                            unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+#endif

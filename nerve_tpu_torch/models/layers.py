@@ -1,0 +1,193 @@
+"""Building blocks of the SR network (NHWC, inference only).
+
+Counterpart of ``nerve_tpu/models/layers.py``. Each module holds its
+parameters in float32 under the names of the flax tree (``kernel``,
+``bias``, ``BatchNorm_0.scale``, …), so ``models.bridge`` maps a flax
+variable tree onto ``state_dict()`` name for name. Forwards cast weights
+and activations to the module's ``dtype`` where the reference does.
+Initial values are drawn from ``generator`` (normal, lecun/he scale, zero
+biases); they are placeholders until real weights are loaded.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from nerve_tpu_torch import ops
+
+BN_EPS = 1e-5
+
+
+def normal_param(shape: Sequence[int], std: float, device=None,
+                 generator: Optional[torch.Generator] = None) -> nn.Parameter:
+    """A float32 parameter drawn from N(0, std²) (std 0 gives zeros)."""
+    t = torch.randn(tuple(shape), generator=generator) * std
+    return nn.Parameter(t.to(device))
+
+
+def zeros_param(shape: Sequence[int], device=None) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(tuple(shape), device=device))
+
+
+class KernelParams(nn.Module):
+    """A bias-free kernel, stored as flax does (HWIO, or (in, out) for Dense)."""
+
+    def __init__(self, shape: Sequence[int], device=None, generator=None):
+        super().__init__()
+        fan_in = math.prod(shape[:-1])
+        self.kernel = normal_param(shape, 1.0 / math.sqrt(fan_in), device, generator)
+
+
+class ConvParams(nn.Module):
+    """An HWIO ``(kernel, bias)`` pair for the conv-chain kernel."""
+
+    def __init__(self, features: int, kernel_size: Tuple[int, int], in_features: int,
+                 zero_init: bool = False, device=None, generator=None):
+        super().__init__()
+        shape = (*kernel_size, in_features, features)
+        std = 0.0 if zero_init else 1.0 / math.sqrt(math.prod(shape[:-1]))
+        self.kernel = normal_param(shape, std, device, generator)
+        self.bias = zeros_param((features,), device)
+
+    def entry(self, act: str):
+        """This layer as a ``conv_chain_apply`` entry."""
+        return (self.kernel, self.bias, act)
+
+
+class QuantizableConv(ConvParams):
+    """One 3×3 conv + activation through the conv-chain kernel.
+
+    Only the reference's ``chain_quant="off"`` path: int8 serving is not
+    ported yet (ROADMAP.md, Queue 1).
+    """
+
+    def __init__(self, features: int, in_features: int, act: str = "none",
+                 dtype: torch.dtype = torch.float32, device=None, generator=None):
+        super().__init__(features, (3, 3), in_features, device=device, generator=generator)
+        self.act = act
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ops.conv_chain_apply(x.to(self.dtype), [self.entry(self.act)])
+
+
+class BNParams(nn.Module):
+    """BatchNorm parameters (scale, bias) and running statistics (mean, var)."""
+
+    def __init__(self, features: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = zeros_param((features,), device)
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+
+class DepthwiseSeparableConv(nn.Module):
+    """Depthwise 3×3 + pointwise 1×1 + BatchNorm + relu, eval statistics.
+
+    The forward folds BatchNorm into the pointwise conv as the reference's
+    ``as_entries`` does (layers.py:207-224) and runs the pair with the
+    rounding of ``_chain_xla``, in the input's dtype. It is plain PyTorch:
+    the reference forces this body to XLA too (super_resolution.py:75-78).
+    """
+
+    def __init__(self, features: int, in_features: int, device=None, generator=None):
+        super().__init__()
+        self.depthwise = KernelParams((3, 3, 1, in_features), device, generator)
+        self.pointwise = KernelParams((1, 1, in_features, features), device, generator)
+        self.BatchNorm_0 = BNParams(features, device)
+
+    def folded(self):
+        """(depthwise (3, 3, C), pointwise (1, 1, C, F), bias (F,)), float32."""
+        bn = self.BatchNorm_0
+        inv = bn.scale / torch.sqrt(bn.var + BN_EPS)
+        return (self.depthwise.kernel[:, :, 0, :],
+                self.pointwise.kernel * inv, bn.bias - bn.mean * inv)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        kd, kp, bp = self.folded()
+        h = x.permute(0, 3, 1, 2)
+        h = F.conv2d(h, kd.to(dt).permute(2, 0, 1).unsqueeze(1), padding=1,
+                     groups=x.shape[-1])
+        h = F.conv2d(h, kp.to(dt).permute(3, 2, 0, 1))
+        h = torch.relu(h.float() + bp[:, None, None]).to(dt)
+        return h.permute(0, 2, 3, 1)
+
+
+class PixelShuffleUpsampler(nn.Module):
+    """3×3 conv to C·s² phase channels, returned before the depth-to-space.
+
+    The reference's ``shuffle=False`` form, the one the SR network uses: its
+    epilogue adds the bicubic base in phase-channel space and interleaves
+    once (``SuperResolutionNet.fuse_from_features``).
+    """
+
+    def __init__(self, scale_factor: int, out_channels: int, in_features: int,
+                 zero_init: bool = False, dtype: torch.dtype = torch.float32,
+                 device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = ConvParams(out_channels * scale_factor**2, (3, 3), in_features,
+                               zero_init=zero_init, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ops.conv_chain_apply(x.to(self.dtype), [self.conv.entry("none")])
+
+
+class ChannelAttention(nn.Module):
+    """SE-style channel attention: pool → Dense → relu → Dense → sigmoid."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 dtype: torch.dtype = torch.float32, device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        mid = max(1, channels // reduction)
+        self.Dense_0 = KernelParams((channels, mid), device, generator)
+        self.Dense_1 = KernelParams((mid, channels), device, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = ops.global_avg_pool(x).to(dt)
+        y = torch.relu(y @ self.Dense_0.kernel.to(dt))
+        y = torch.sigmoid(y @ self.Dense_1.kernel.to(dt))
+        return x * y[:, None, None, :]
+
+
+class SpatialAttention(nn.Module):
+    """Channel mean and max planes → 7×7 conv → sigmoid mask."""
+
+    def __init__(self, kernel_size: int = 7, dtype: torch.dtype = torch.float32,
+                 device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        shape = (kernel_size, kernel_size, 2, 1)
+        self.conv_kernel = normal_param(shape, 1.0 / math.sqrt(2 * kernel_size**2),
+                                        device, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        planes = torch.stack([x.mean(-1).to(dt), x.amax(-1).to(dt)], dim=1)
+        k = self.conv_kernel.to(dt).float().permute(3, 2, 0, 1)
+        # float32 sums over the taps, as the reference accumulates them.
+        y = F.conv2d(planes.float(), k, padding=k.shape[-1] // 2)[:, 0]
+        return x * torch.sigmoid(y.to(dt))[..., None]
+
+
+class CBAM(nn.Module):
+    """Channel attention followed by spatial attention."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 dtype: torch.dtype = torch.float32, device=None, generator=None):
+        super().__init__()
+        self.ChannelAttention_0 = ChannelAttention(channels, reduction, dtype,
+                                                   device, generator)
+        self.SpatialAttention_0 = SpatialAttention(7, dtype, device, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.SpatialAttention_0(self.ChannelAttention_0(x))

@@ -1,0 +1,113 @@
+"""Build the CUDA kernels of ``nerve_tpu_torch/csrc`` and bind them with ctypes.
+
+One ``nvcc`` call compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into
+one shared library with a plain C interface (``csrc/nerve_tpu_torch.h``).
+The library lands in ``build/nerve_tpu_torch/`` under the repository root,
+named by a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one loads at once. Nothing builds at import: the first kernel
+launch builds. A missing ``nvcc`` or a failed build raises with the
+compiler's message; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerve_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# name -> (restype, argtypes); see csrc/nerve_tpu_torch.h.
+SIGNATURES = {
+    "nt_d2s_packed": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_correlation": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_conv2d": (_I, (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_rdb_lff": (_I, (_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P)),
+    "nt_error_string": (ctypes.c_char_p, (_I,)),
+}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, /usr/local/cuda/bin): cannot build the CUDA kernels")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.h")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libnerve_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *map(str, sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    lib.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (restype, argtypes) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _lib = lib
+    return _lib
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    try:
+        return DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16, got {t.dtype}") from None
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry point ``name`` on ``device``'s current stream; raise on error.
+
+    ``args`` are the entry point's arguments without the trailing stream.
+    """
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        msg = lib.nt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -1,0 +1,119 @@
+"""The nerve_tpu_torch CUDA kernels against their plain versions, on the GPU.
+
+Marked ``cuda``: each test skips where there is no CUDA device. The machine
+with the GPU has no JAX, so this file imports none and runs without the
+repository's conftest::
+
+    python -m pytest tests/test_torch_port_cuda.py --noconftest -q
+
+Shapes are small and ragged (not multiples of the kernels' tiles). Limits,
+relative to max|plain|: d2s bit-exact; float32 1e-4 (correlation 1e-5),
+TF32 off; bfloat16 at the JAX package's kernel-gate levels (correlation
+1e-2, conv chain 2.4e-2, RDB 1.56e-2), since rounding to bfloat16 at
+different sums can flip an intermediate by one unit in the last place.
+"""
+
+import importlib
+
+import pytest
+import torch
+
+from nerve_tpu_torch import ops
+from nerve_tpu_torch.ops import conv_chain, correlation, dispatch, rdb
+
+d2s = importlib.import_module("nerve_tpu_torch.ops.pixel_shuffle")
+
+LIMITS = {  # kernel -> (float32, bfloat16) limits relative to max|plain|
+    "correlation": (1e-5, 1e-2),
+    "conv_chain": (1e-4, 2.4e-2),
+    "rdb": (1e-4, 1.56e-2),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(g, *shape, std=1.0):
+    return torch.randn(shape, generator=g) * std
+
+
+def _conv_params(g, widths, kinds, dev):
+    out = []
+    for i, k in enumerate(kinds):
+        cin, cout = widths[i], widths[i + 1]
+        w = _rand(g, k, k, cin, cout, std=(k * k * cin) ** -0.5)
+        act = "relu" if i < len(kinds) - 1 else "none"
+        out.append((w.to(dev), _rand(g, cout, std=0.1).to(dev), act))
+    return out
+
+
+def _rdb_params(g, c, dev, layers=5, growth=32):
+    params, cin = [], c
+    for _ in range(layers):
+        params += [_rand(g, 3, 3, cin, growth, std=(9 * cin) ** -0.5), _rand(g, growth, std=0.1)]
+        cin += growth
+    params += [_rand(g, cin, c, std=cin ** -0.5), _rand(g, c, std=0.1)]
+    return [p.to(dev) for p in params]
+
+
+def _check(kernel, got, ref, dt):
+    lim = LIMITS[kernel][dt == torch.bfloat16]
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert err <= lim * scale, f"{kernel}: max|err| {err} > {lim} * {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d2s_packed_bit_exact(cuda, dtype):
+    g = torch.Generator().manual_seed(0)
+    for shape, s in (((2, 13, 37, 12), 2), ((1, 5, 9, 27), 3)):
+        x = _rand(g, *shape).to(cuda, dtype)
+        n0 = dispatch.launches["d2s_packed"]
+        got = ops.depth_to_space_packed(x, s)
+        assert dispatch.launches["d2s_packed"] == n0 + 1
+        assert torch.equal(got, d2s.depth_to_space_packed_plain(x, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2, 4])
+def test_correlation(cuda, dtype, d):
+    g = torch.Generator().manual_seed(1)
+    f1, f2 = (_rand(g, 2, 11, 35, 16).to(cuda, dtype) for _ in range(2))
+    _check("correlation", ops.correlation_volume(f1, f2, d),
+           correlation.correlation_plain(f1, f2, d), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_chain(cuda, dtype):
+    g = torch.Generator().manual_seed(2)
+    xs = [_rand(g, 2, 9, 35, 4).to(cuda, dtype) for _ in range(3)]
+    params = _conv_params(g, [12, 40, 20, 3, 12], [3, 1, 3, 3], cuda)
+    _check("conv_chain", ops.conv_chain_apply(xs, params),
+           conv_chain.conv_chain_plain(xs, params), dtype)
+
+
+@pytest.mark.cuda
+def test_conv_chain_dw3_raises(cuda):
+    x = torch.zeros(1, 4, 4, 8, device=cuda)
+    dw = (torch.zeros(3, 3, 8, device=cuda), torch.zeros(8, device=cuda), "none")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.conv_chain_apply(x, [dw])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rdb(cuda, dtype):
+    g = torch.Generator().manual_seed(3)
+    plist = [[p.to(dtype) for p in _rdb_params(g, 16, cuda)] for _ in range(2)]
+    x = _rand(g, 1, 10, 33, 16).to(cuda, dtype)
+    _check("rdb", ops.rdb_chain_apply(x, plist), rdb.rdb_chain_plain(x, plist), dtype)
