@@ -3,14 +3,18 @@
 The port's modules carry the flax tree's names, so a flax path
 ``params/feature_extractor/head/kernel`` is ``state_dict()`` key
 ``feature_extractor.head.kernel`` and a ``batch_stats`` path is the
-BatchNorm buffer of the same name. Layouts are the same too (HWIO
-kernels, the RDB fusion as a 2-D matrix), so loading is a copy. It is
-strict: a missing, unused or misshapen entry raises.
+BatchNorm buffer of the same name. The ``"quant"`` collection of an int8
+model holds tuples and lists; their indices name the port's buffers
+(``quant/rdbs/qchain[b][0][i]``, block b's dense weights i, is
+``rdbs.qchain.{b}.0.{i}``; see ``layers.QuantState``). Layouts are the same
+too (HWIO kernels, the RDB fusion as a 2-D matrix, the int8 wire format),
+so loading is a copy. It is strict: a missing, unused or misshapen entry
+raises, and int8 entries stay int8 and may fill only int8 buffers.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -18,23 +22,27 @@ import torch.nn as nn
 
 from nerve_tpu_torch.models.super_resolution import SuperResolutionNet
 
-COLLECTIONS = ("params", "batch_stats")
+COLLECTIONS = ("params", "batch_stats", "quant")
 
 
-def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Leaves of nested mappings, tuples and lists under dotted keys (a
+    sequence's items by index)."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, Sequence) and not isinstance(tree, str):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: np.asarray(tree)}
     out = {}
-    for k, v in tree.items():
-        key = f"{prefix}{k}"
-        if isinstance(v, Mapping):
-            out.update(_flatten(v, key + "."))
-        else:
-            out[key] = np.asarray(v)
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}{k}."))
     return out
 
 
 def load_flax_variables(module: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
-    """Copy a flax ``{"params", "batch_stats"}`` tree (numpy leaves) into
-    ``module``'s parameters and buffers, strictly."""
+    """Copy a flax ``{"params", "batch_stats", "quant"}`` tree (numpy
+    leaves) into ``module``'s parameters and buffers, strictly."""
     unknown = sorted(set(variables) - set(COLLECTIONS))
     if unknown:
         raise KeyError(f"unknown flax collections {unknown}")
@@ -55,12 +63,18 @@ def load_flax_variables(module: nn.Module, variables: Mapping[str, Any]) -> nn.M
             arr = flat[k]
             if arr.shape != tuple(t.shape):
                 raise ValueError(f"{k}: flax shape {arr.shape}, module shape {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(np.asarray(arr, dtype=np.float32)))
+            if (arr.dtype == np.int8) != (t.dtype == torch.int8):
+                raise TypeError(f"{k}: flax {arr.dtype} for a module {t.dtype} tensor")
+            if arr.dtype != np.int8:
+                arr = np.asarray(arr, dtype=np.float32)
+            t.copy_(torch.from_numpy(arr))
     return module
 
 
-def sr_from_flax(variables_numpy: Mapping[str, Any], device=None,
+def sr_from_flax(variables_numpy: Mapping[str, Any], device="cuda",
                  **config) -> SuperResolutionNet:
-    """A ``SuperResolutionNet(**config)`` in eval mode holding the flax weights."""
+    """A ``SuperResolutionNet(**config)`` in eval mode holding the flax
+    variables (with ``quantized``/``quantized_chains``, their ``"quant"``
+    collection too), on the card unless ``device="cpu"``."""
     model = SuperResolutionNet(device=device, **config)
     return load_flax_variables(model, variables_numpy).eval()

@@ -7,6 +7,10 @@ variable tree onto ``state_dict()`` name for name. Forwards cast weights
 and activations to the module's ``dtype`` where the reference does.
 Initial values are drawn from ``generator`` (normal, lecun/he scale, zero
 biases); they are placeholders until real weights are loaded.
+
+The int8 state of a quantised conv-chain site lives in buffers under the
+name of the flax ``"quant"`` collection's entry (``qhead``, ``qflow``,
+``qattn``, ``qconv``), in the JAX wire format (``ops.conv_chain_int8``).
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from nerve_tpu_torch import ops
+from nerve_tpu_torch.ops import conv_chain_int8
 
 BN_EPS = 1e-5
+CHAIN_QUANT_MODES = ("off", "serve", "calibrate")
 
 
 def normal_param(shape: Sequence[int], std: float, device=None,
@@ -59,21 +65,110 @@ class ConvParams(nn.Module):
         return (self.kernel, self.bias, act)
 
 
-class QuantizableConv(ConvParams):
-    """One 3×3 conv + activation through the conv-chain kernel.
+class QuantState(nn.Module):
+    """A nested tuple of tensors held as buffers named by their index.
 
-    Only the reference's ``chain_quant="off"`` path: int8 serving is not
-    ported yet (ROADMAP.md, Queue 1).
+    ``state_dict()`` keys follow the tree of the flax ``"quant"`` entry:
+    for a conv chain ``(qlayers, s_in)``, ``0.{i}.0`` is layer i's ``wq``,
+    ``0.{i}.1`` its ``meta`` and ``1`` is ``s_in``.
     """
 
+    def __init__(self, tree):
+        super().__init__()
+        self.size = len(tree)
+        for i, v in enumerate(tree):
+            if isinstance(v, torch.Tensor):
+                self.register_buffer(str(i), v.detach().clone())
+            else:
+                self.add_module(str(i), QuantState(v))
+
+    def value(self) -> tuple:
+        """The tree, its leaves the buffers themselves."""
+        return tuple(self._buffers[str(i)] if str(i) in self._buffers
+                     else self._modules[str(i)].value() for i in range(self.size))
+
+    @torch.no_grad()
+    def assign(self, tree) -> None:
+        """Copy ``tree`` (same structure, shapes and dtypes) into the buffers."""
+        if len(tree) != self.size:
+            raise ValueError(f"quant tree of {len(tree)} entries, state holds {self.size}")
+        for i, v in enumerate(tree):
+            if str(i) in self._buffers:
+                buf = self._buffers[str(i)]
+                if v.shape != buf.shape or v.dtype != buf.dtype:
+                    raise ValueError(f"quant entry {i}: {v.dtype} {tuple(v.shape)} for a "
+                                     f"{buf.dtype} {tuple(buf.shape)} buffer")
+                buf.copy_(v)
+            else:
+                self._modules[str(i)].assign(v)
+
+
+def _float_entries(entries):
+    return [(k.float(), b.float(), act) for k, b, act in entries]
+
+
+def add_chain_quant(mod: nn.Module, name: str, entries, chain_quant: str) -> None:
+    """Give ``mod`` the int8 state ``name`` of the chain ``entries`` unless
+    ``chain_quant`` is "off": the wire format at unit activation scales, as
+    flax ``init`` builds its default; real scales come from calibration."""
+    if chain_quant not in CHAIN_QUANT_MODES:
+        raise ValueError(f"unknown chain_quant {chain_quant!r}")
+    mod.chain_quant = chain_quant
+    if chain_quant != "off":
+        params = _float_entries(entries)
+        ones = torch.ones(len(params) + 1, device=params[0][0].device)
+        setattr(mod, name, QuantState(conv_chain_int8.quantize_conv_chain(params, ones)[:2]))
+
+
+def maybe_quantized_chain(mod: nn.Module, name: str, x, entries,
+                          chain_quant: str = "off") -> torch.Tensor:
+    """A conv chain, in int8 when asked (counterpart of the JAX function).
+
+    ``entries``: ``[(kernel, bias, act), …]`` as for ``ops.conv_chain_apply``.
+    ``chain_quant``:
+
+    * ``"off"``: the exact bf16/float32 chain;
+    * ``"serve"``: int8 weights and activations with the static scales of
+      ``mod``'s state ``name`` (``ops.conv_chain_int8_apply``);
+    * ``"calibrate"``: max-abs scales from this input, quantise into the
+      state ``name``, and return the exact result, so that later sites
+      calibrate on the unquantised distribution.
+
+    int8 serving is inference only: a module in training mode raises.
+    """
+    if chain_quant == "off":
+        return ops.conv_chain_apply(x, entries)
+    if chain_quant not in CHAIN_QUANT_MODES:
+        raise ValueError(f"unknown chain_quant {chain_quant!r}")
+    if mod.training:
+        raise RuntimeError("int8 chains are inference only: call .eval() first")
+    state = getattr(mod, name)
+    params = _float_entries(entries)
+    if chain_quant == "calibrate":
+        scales = conv_chain_int8.calibrate_conv_chain(x, params)
+        state.assign(conv_chain_int8.quantize_conv_chain(params, scales)[:2])
+        return ops.conv_chain_apply(x, entries)
+    qlayers, s_in = state.value()
+    dt = x[0].dtype if isinstance(x, (list, tuple)) else x.dtype
+    return ops.conv_chain_int8_apply(x, (qlayers, s_in, tuple(a for *_, a in entries)),
+                                     entries[-1][0].shape[-1], out_dtype=dt)
+
+
+class QuantizableConv(ConvParams):
+    """One 3×3 conv + activation through the conv-chain kernel, or in int8
+    (``chain_quant``, state ``qconv``; see :func:`maybe_quantized_chain`)."""
+
     def __init__(self, features: int, in_features: int, act: str = "none",
-                 dtype: torch.dtype = torch.float32, device=None, generator=None):
+                 dtype: torch.dtype = torch.float32, chain_quant: str = "off",
+                 device=None, generator=None):
         super().__init__(features, (3, 3), in_features, device=device, generator=generator)
         self.act = act
         self.dtype = dtype
+        add_chain_quant(self, "qconv", [self.entry(act)], chain_quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ops.conv_chain_apply(x.to(self.dtype), [self.entry(self.act)])
+        return maybe_quantized_chain(self, "qconv", x.to(self.dtype), [self.entry(self.act)],
+                                     self.chain_quant)
 
 
 class BNParams(nn.Module):
@@ -125,19 +220,22 @@ class PixelShuffleUpsampler(nn.Module):
 
     The reference's ``shuffle=False`` form, the one the SR network uses: its
     epilogue adds the bicubic base in phase-channel space and interleaves
-    once (``SuperResolutionNet.fuse_from_features``).
+    once (``SuperResolutionNet.fuse_from_features``). ``chain_quant`` serves
+    the conv in int8 (state ``qconv``; see :func:`maybe_quantized_chain`).
     """
 
     def __init__(self, scale_factor: int, out_channels: int, in_features: int,
                  zero_init: bool = False, dtype: torch.dtype = torch.float32,
-                 device=None, generator=None):
+                 chain_quant: str = "off", device=None, generator=None):
         super().__init__()
         self.dtype = dtype
         self.conv = ConvParams(out_channels * scale_factor**2, (3, 3), in_features,
                                zero_init=zero_init, device=device, generator=generator)
+        add_chain_quant(self, "qconv", [self.conv.entry("none")], chain_quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ops.conv_chain_apply(x.to(self.dtype), [self.conv.entry("none")])
+        return maybe_quantized_chain(self, "qconv", x.to(self.dtype),
+                                     [self.conv.entry("none")], self.chain_quant)
 
 
 class ChannelAttention(nn.Module):

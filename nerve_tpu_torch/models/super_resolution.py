@@ -7,10 +7,19 @@ aggregation → residual dense blocks → global fusion + centre skip →
 upsampler conv + bicubic base in phase-channel space → clamp [0, 1] → one
 depth-to-space. Input (B, T, H, W, C) with T = 2·temporal_window + 1.
 
-The four kernel ops are called through the ``ops`` namespace
+The kernel ops are called through the ``ops`` namespace
 (``ops.conv_chain_apply``, ``ops.correlation_volume``,
-``ops.rdb_chain_apply``, ``ops.depth_to_space_packed``): on CUDA tensors
-they run the hand-written kernels.
+``ops.rdb_chain_apply``, ``ops.depth_to_space_packed``, and for int8
+serving ``ops.conv_chain_int8_apply`` and ``ops.rdb_chain_int8_apply``): on
+CUDA tensors they run the hand-written kernels.
+
+int8 serving (``quantized``: the RDB stack; ``quantized_chains``: the
+feature head, flow head, attention logits, gff and upsampler convs) reads
+static scales from buffers that ``models.quantize.quantize_sr`` calibrates
+or ``models.bridge`` loads from the JAX ``"quant"`` collection. It is
+inference only: a quantised site raises in training mode.
+
+The model is built on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -28,18 +37,31 @@ from nerve_tpu_torch.models.layers import (
     DepthwiseSeparableConv,
     PixelShuffleUpsampler,
     QuantizableConv,
+    QuantState,
+    add_chain_quant,
+    maybe_quantized_chain,
     normal_param,
     zeros_param,
 )
+from nerve_tpu_torch.ops import rdb_int8
 
 OUTPUT_LAYOUTS = ("nhwc", "planar", "packed")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return device
 
 
 class FeatureExtractor(nn.Module):
     """Conv head + 3 depthwise-separable blocks with a residual."""
 
     def __init__(self, in_channels: int = 3, num_features: int = 64,
-                 dtype: torch.dtype = torch.float32, device=None, generator=None):
+                 dtype: torch.dtype = torch.float32, chain_quant: str = "off",
+                 device=None, generator=None):
         super().__init__()
         self.dtype = dtype
         self.head = ConvParams(num_features, (3, 3), in_channels, device=device,
@@ -47,9 +69,11 @@ class FeatureExtractor(nn.Module):
         for i in range(3):
             self.add_module(f"body{i}", DepthwiseSeparableConv(
                 num_features, num_features, device, generator))
+        add_chain_quant(self, "qhead", [self.head.entry("relu")], chain_quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        feat = ops.conv_chain_apply(x.to(self.dtype), [self.head.entry("relu")])
+        feat = maybe_quantized_chain(self, "qhead", x.to(self.dtype),
+                                     [self.head.entry("relu")], self.chain_quant)
         body = feat
         for i in range(3):
             body = getattr(self, f"body{i}")(body)
@@ -64,7 +88,8 @@ class MotionEstimator(nn.Module):
     """
 
     def __init__(self, max_displacement: int = 4, downsample: int = 1,
-                 dtype: torch.dtype = torch.float32, device=None, generator=None):
+                 dtype: torch.dtype = torch.float32, chain_quant: str = "off",
+                 device=None, generator=None):
         super().__init__()
         self.max_displacement = max_displacement
         self.downsample = downsample
@@ -76,6 +101,11 @@ class MotionEstimator(nn.Module):
         self.flow2 = ConvParams(32, (3, 3), 64, **kw)
         # Zero-initialised last layer: warping starts as the identity.
         self.flow3 = ConvParams(2, (3, 3), 32, zero_init=True, **kw)
+        add_chain_quant(self, "qflow", self.entries(), chain_quant)
+
+    def entries(self):
+        return [self.flow0.entry("relu"), self.flow1.entry("relu"),
+                self.flow2.entry("relu"), self.flow3.entry("none")]
 
     def forward(self, feat1: torch.Tensor, feat2: torch.Tensor) -> torch.Tensor:
         ds = self.downsample
@@ -83,10 +113,7 @@ class MotionEstimator(nn.Module):
         if ds > 1:
             feat1, feat2 = ops.avg_pool2d(feat1, ds), ops.avg_pool2d(feat2, ds)
         corr = ops.correlation_volume(feat1, feat2, self.max_displacement).to(self.dtype)
-        flow = ops.conv_chain_apply(corr, [
-            self.flow0.entry("relu"), self.flow1.entry("relu"),
-            self.flow2.entry("relu"), self.flow3.entry("none"),
-        ])
+        flow = maybe_quantized_chain(self, "qflow", corr, self.entries(), self.chain_quant)
         if ds > 1:
             flow = ops.resize_bilinear(flow, (h, w)) * float(ds)
         return flow
@@ -96,7 +123,8 @@ class TemporalAggregator(nn.Module):
     """Softmax-over-T attention fusion of T aligned frames + CBAM refinement."""
 
     def __init__(self, num_features: int = 64, num_frames: int = 3,
-                 dtype: torch.dtype = torch.float32, device=None, generator=None):
+                 dtype: torch.dtype = torch.float32, chain_quant: str = "off",
+                 device=None, generator=None):
         super().__init__()
         self.dtype = dtype
         kw = dict(device=device, generator=generator)
@@ -105,13 +133,16 @@ class TemporalAggregator(nn.Module):
         self.attn1 = ConvParams(f, (3, 3), f, **kw)
         self.attn2 = ConvParams(t, (3, 3), f, **kw)
         self.refine = CBAM(f, dtype=dtype, **kw)
+        add_chain_quant(self, "qattn", self.entries(), chain_quant)
+
+    def entries(self):
+        return [self.attn0.entry("relu"), self.attn1.entry("relu"), self.attn2.entry("none")]
 
     def forward(self, aligned: Sequence[torch.Tensor]) -> torch.Tensor:
         frames = list(aligned)
         dt = self.dtype
-        logits = ops.conv_chain_apply([fr.to(dt) for fr in frames], [
-            self.attn0.entry("relu"), self.attn1.entry("relu"), self.attn2.entry("none"),
-        ])
+        logits = maybe_quantized_chain(self, "qattn", [fr.to(dt) for fr in frames],
+                                       self.entries(), self.chain_quant)
         # Softmax over T on (B, H, W) planes, in the reference's order.
         planes = [logits[..., i].float() for i in range(len(frames))]
         m = planes[0]
@@ -130,15 +161,24 @@ class TemporalAggregator(nn.Module):
 
 class RDBStack(nn.Module):
     """``num_blocks`` residual dense blocks, parameters named as in flax
-    (``rdb{b}_dense{i}_kernel`` …, LFF as a 2-D ``(C + L·G, C)`` matrix)."""
+    (``rdb{b}_dense{i}_kernel`` …, LFF as a 2-D ``(C + L·G, C)`` matrix).
+
+    ``quantized`` serves the stack in int8 from the state ``qchain`` (the
+    JAX wire format, ``ops.rdb_int8``; unit scales until calibrated). With
+    ``quant_calibrate`` set, a forward computes the scales from its input,
+    quantises into ``qchain`` and returns the exact result.
+    """
 
     def __init__(self, num_features: int = 64, num_blocks: int = 8,
                  growth_rate: int = 32, num_layers: int = 5,
-                 dtype: torch.dtype = torch.float32, device=None, generator=None):
+                 dtype: torch.dtype = torch.float32, quantized: bool = False,
+                 device=None, generator=None):
         super().__init__()
         self.dtype = dtype
         self.num_blocks = num_blocks
         self.num_layers = num_layers
+        self.quantized = quantized
+        self.quant_calibrate = False
         for b in range(num_blocks):
             cin = num_features
             for i in range(num_layers):
@@ -151,6 +191,9 @@ class RDBStack(nn.Module):
             self.register_parameter(f"rdb{b}_lff_kernel", normal_param(
                 (cin, num_features), 1.0 / math.sqrt(cin), device, generator))
             self.register_parameter(f"rdb{b}_lff_bias", zeros_param((num_features,), device))
+        if quantized:
+            ones = torch.ones((num_blocks, 1 + num_layers), device=device)
+            self.qchain = QuantState(rdb_int8.quantize_rdb_chain(self._params_f32(), ones))
 
     def block_params(self, b: int) -> List[torch.Tensor]:
         """Block ``b``'s (w_0, b_0, …, lw, lb) in the compute dtype."""
@@ -158,9 +201,23 @@ class RDBStack(nn.Module):
                  for k in ("kernel", "bias")] + [f"rdb{b}_lff_kernel", f"rdb{b}_lff_bias"]
         return [getattr(self, n).to(self.dtype) for n in names]
 
+    def _params_f32(self) -> List[List[torch.Tensor]]:
+        # The compute-dtype params in float32, as the JAX stack quantises them.
+        return [[p.float() for p in self.block_params(b)] for b in range(self.num_blocks)]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         params_list = [self.block_params(b) for b in range(self.num_blocks)]
-        return ops.rdb_chain_apply(x.to(self.dtype), params_list)
+        if not self.quantized:
+            return ops.rdb_chain_apply(x, params_list)
+        if self.training:
+            raise RuntimeError("the int8 RDB stack is inference only: call .eval() first")
+        if self.quant_calibrate:
+            params_f32 = self._params_f32()
+            scales = rdb_int8.calibrate_rdb_chain(x.float(), params_f32)
+            self.qchain.assign(rdb_int8.quantize_rdb_chain(params_f32, scales))
+            return ops.rdb_chain_apply(x, params_list)
+        return ops.rdb_chain_int8_apply(x, self.qchain.value(), out_dtype=x.dtype)
 
 
 class SuperResolutionNet(nn.Module):
@@ -169,21 +226,29 @@ class SuperResolutionNet(nn.Module):
     def __init__(self, in_channels: int = 3, scale_factor: int = 2,
                  num_features: int = 64, num_residual_blocks: int = 8,
                  temporal_window: int = 1, flow_downsample: int = 1,
-                 dtype: torch.dtype = torch.float32, device=None,
+                 quantized: bool = False, quantized_chains: bool = False,
+                 dtype: torch.dtype = torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.scale_factor = scale_factor
         self.temporal_window = temporal_window
+        self.quantized = quantized
+        self.quantized_chains = quantized_chains
         self.dtype = dtype
-        kw = dict(device=device, generator=generator)
-        self.feature_extractor = FeatureExtractor(in_channels, num_features, dtype, **kw)
-        self.motion_estimator = MotionEstimator(downsample=flow_downsample, dtype=dtype, **kw)
+        cq = "serve" if quantized_chains else "off"
+        kw = dict(device=resolve_device(device), generator=generator)
+        self.feature_extractor = FeatureExtractor(in_channels, num_features, dtype, cq, **kw)
+        self.motion_estimator = MotionEstimator(downsample=flow_downsample, dtype=dtype,
+                                                chain_quant=cq, **kw)
         self.temporal_aggregator = TemporalAggregator(num_features, self.num_frames,
-                                                      dtype, **kw)
-        self.rdbs = RDBStack(num_features, num_residual_blocks, dtype=dtype, **kw)
-        self.gff = QuantizableConv(num_features, num_features, act="relu", dtype=dtype, **kw)
+                                                      dtype, cq, **kw)
+        self.rdbs = RDBStack(num_features, num_residual_blocks, dtype=dtype,
+                             quantized=quantized, **kw)
+        self.gff = QuantizableConv(num_features, num_features, act="relu", dtype=dtype,
+                                   chain_quant=cq, **kw)
         self.upsampler = PixelShuffleUpsampler(scale_factor, in_channels, num_features,
-                                               zero_init=True, dtype=dtype, **kw)
+                                               zero_init=True, dtype=dtype, chain_quant=cq,
+                                               **kw)
 
     @property
     def num_frames(self) -> int:

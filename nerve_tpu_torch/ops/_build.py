@@ -35,9 +35,11 @@ SIGNATURES = {
     "nt_correlation": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "nt_conv2d": (_I, (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     "nt_rdb_lff": (_I, (_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P)),
+    "nt_conv2d_i8": (_I, (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_rdb_lff_i8": (_I, (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "nt_error_string": (ctypes.c_char_p, (_I,)),
 }
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -96,7 +98,7 @@ def dtype_code(t: torch.Tensor) -> int:
     try:
         return DTYPE_CODES[t.dtype]
     except KeyError:
-        raise TypeError(f"the CUDA kernels take float32 or bfloat16, got {t.dtype}") from None
+        raise TypeError(f"the CUDA kernels take float32, bfloat16 or int8, got {t.dtype}") from None
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-KERNELS = ("d2s_packed", "correlation", "conv_chain", "rdb")
+KERNELS = ("d2s_packed", "correlation", "conv_chain", "rdb", "conv_chain_int8", "rdb_int8")
 launches = dict.fromkeys(KERNELS, 0)
 
 

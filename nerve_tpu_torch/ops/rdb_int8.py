@@ -1,0 +1,261 @@
+"""Static post-training int8 residual dense block (RDB) chain.
+
+Counterpart of ``nerve_tpu/ops/rdb_int8.py``, in its production scheme
+(per-column weight scales, ``PER_CHANNEL_INT8 = False`` there; the
+per-channel ``int32_taps`` variant is not ported).
+
+Scheme: per-tensor symmetric int8 activations with static scales from a
+calibration forward (:func:`calibrate_rdb_chain`: the block input and each
+dense layer's relu output); per-column symmetric int8 weights on the packed
+tap matrix, each row folded with the activation scale of the slot that owns
+its input channel (:func:`_owner_scales`), so one factor per column
+dequantises the int32 sum; exact float32 biases.
+
+Wire format per block (:func:`quantize_rdb_block`, the JAX package's):
+``wq`` L+1 int8 matrices (dense layer i ``(FEAT_OFF + C + i·G, 9·G)``,
+column ``(3·dy + dx)·G + n``; the fusion ``(FEAT_OFF + C + L·G, C)``; the
+``FEAT_OFF`` leading rows are zero), ``dq`` float32 ``(L, 9·G)``, ``meta``
+float32 ``(4, max(9·G, 2·C, L·G))``: row 0 the dense biases, row 1 the
+fusion's dequant factors then its bias, row 2 s_in, row 3 each dense
+layer's requant factor 1/s_f.
+
+Numerics (``rdb_chain_int8_xla``): the chain input is quantised once by
+division by block 0's s_in; each tap's int32 sum is dequantised and rounded
+to bfloat16, the taps added in float32 (dy outer, dx inner), float32 bias,
+relu, requantised by multiplication with row 3; the fusion is
+``(lff·ldq + lbias)·0.2 + x_q·s_in`` on the int8 block input; between
+blocks the result is requantised by division by the next block's s_in,
+after the last block rounded to ``out_dtype``.
+
+A CUDA tensor runs the hand-written kernels: the dense layers are
+``nt_conv2d_i8`` (``csrc/conv_int8.cu``) writing into the slots of an int8
+(B, H, W, C + L·G) concatenation buffer, and ``nt_rdb_lff_i8``
+(``csrc/rdb_int8.cu``) fuses and requantises into the next block's buffer.
+Any geometry (C, L, G) runs on the kernels; one whose layer does not fit a
+block's shared memory raises. A CPU tensor runs ``rdb_chain_int8_plain``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from nerve_tpu_torch.ops import _build, dispatch
+from nerve_tpu_torch.ops.conv_chain import conv_chain_plain
+from nerve_tpu_torch.ops.conv_chain_int8 import (
+    QMAX,
+    _ceil_to,
+    conv_layer_launch_i8,
+    exact_float32,
+    int_products,
+    quantize_activation,
+    tap_major,
+)
+
+FEAT_OFF = 8  # leading zero rows of the wire format's weight matrices
+GROWTH = 32
+NUM_LAYERS = 5
+RES_SCALE = 0.2
+
+
+def calibrate_rdb_chain(x: torch.Tensor, params_list: Sequence) -> torch.Tensor:
+    """(num_blocks, 1 + L) scales ``[s_in, s_f0, …]`` per block: max-abs / 127
+    of the block input and of each dense layer's relu output, from the exact
+    float32 chain on ``x``. Any block geometry."""
+    x = x.float()
+    rows = []
+    with exact_float32():
+        for params in params_list:
+            ps = [torch.as_tensor(p).float() for p in params]
+            lw, lb = ps[-2], ps[-1]
+            maxes = [x.abs().max()]
+            feats = [x]
+            for i in range(len(ps) // 2 - 1):
+                f = conv_chain_plain(torch.cat(feats, dim=-1), [(ps[2 * i], ps[2 * i + 1], "relu")])
+                feats.append(f)
+                maxes.append(f.abs().max())
+            lff = torch.matmul(torch.cat(feats, dim=-1), lw) + lb
+            x = lff * RES_SCALE + x
+            rows.append(torch.stack(maxes))
+    return torch.stack(rows) / QMAX
+
+
+def _owner_scales(features: int, k: int, scales: torch.Tensor,
+                  growth: int = GROWTH) -> torch.Tensor:
+    """Activation scale owning each of the first ``k`` concatenation channels:
+    [0, FEAT_OFF) and the block input take s_in, then ``growth``-wide runs
+    take each dense layer's scale."""
+    owner = [0] * (FEAT_OFF + features)
+    i = 0
+    while len(owner) < k:
+        owner += [1 + i] * growth
+        i += 1
+    return scales[torch.tensor(owner[:k], device=scales.device)]
+
+
+def _quantize_columns(m: torch.Tensor):
+    col = torch.clamp(m.abs().amax(dim=0), min=1e-12) / QMAX
+    return torch.clamp(torch.round(m / col), -QMAX, QMAX).to(torch.int8), col
+
+
+def quantize_rdb_block(params: Sequence[torch.Tensor], features: int,
+                       scales: torch.Tensor) -> Tuple[List[torch.Tensor], torch.Tensor,
+                                                      torch.Tensor]:
+    """One block's params + activation scales → ``(wq, dq, meta)`` in the
+    wire format (module docstring). L and G come from ``params``."""
+    scales = scales.float()
+    ps = [torch.as_tensor(p).float() for p in params]
+    num_layers = len(ps) // 2 - 1
+    growth = ps[0].shape[3]
+    ntap = 9 * growth
+    wq, dqs = [], []
+    for i in range(num_layers):
+        w = ps[2 * i]
+        ki = FEAT_OFF + features + growth * i
+        wp = F.pad(w, (0, 0, FEAT_OFF, ki - FEAT_OFF - w.shape[2]))
+        wcat = wp.permute(2, 0, 1, 3).reshape(ki, ntap)
+        q, col = _quantize_columns(wcat * _owner_scales(features, ki, scales, growth)[:, None])
+        wq.append(q)
+        dqs.append(col)
+    lw, lb = ps[-2], ps[-1]
+    kl = FEAT_OFF + features + growth * num_layers
+    lwp = F.pad(lw, (0, 0, FEAT_OFF, kl - FEAT_OFF - lw.shape[0]))
+    q, lcol = _quantize_columns(lwp * _owner_scales(features, kl, scales, growth)[:, None])
+    wq.append(q)
+
+    meta = torch.zeros((4, max(ntap, 2 * features, num_layers * growth)),
+                       dtype=torch.float32, device=lw.device)
+    meta[0, :num_layers * growth] = torch.cat([ps[2 * i + 1] for i in range(num_layers)])
+    meta[1, :features] = lcol
+    meta[1, features:2 * features] = lb
+    meta[2, :] = scales[0]
+    meta[3, :num_layers * growth] = torch.repeat_interleave(1.0 / scales[1:], growth)
+    return wq, torch.stack(dqs), meta
+
+
+def quantize_rdb_chain(params_list: Sequence, scales: torch.Tensor):
+    """Whole-chain quantisation: a tuple of per-block ``(wq, dq, meta)``."""
+    features = params_list[0][0].shape[2]
+    return tuple(quantize_rdb_block(params, features, scales[b])
+                 for b, params in enumerate(params_list))
+
+
+def chain_geometry(qchain) -> Tuple[int, int]:
+    """(num_layers, growth) of a quantised chain's wire format."""
+    wq = qchain[0][0]
+    return len(wq) - 1, wq[0].shape[1] // 9
+
+
+def _check_chain(qchain, features: int) -> Tuple[int, int]:
+    num_layers, growth = chain_geometry(qchain)
+    for b, (wq, dq, meta) in enumerate(qchain):
+        shapes = [tuple(w.shape) for w in wq]
+        want = [(FEAT_OFF + features + growth * i, 9 * growth) for i in range(num_layers)]
+        want.append((FEAT_OFF + features + growth * num_layers, features))
+        width = max(9 * growth, 2 * features, num_layers * growth)
+        if (shapes != want or tuple(dq.shape) != (num_layers, 9 * growth)
+                or tuple(meta.shape) != (4, width)):
+            raise ValueError(f"int8 RDB block {b}: wq {shapes}, dq {tuple(dq.shape)}, meta "
+                             f"{tuple(meta.shape)} do not fit C={features}, L={num_layers}, "
+                             f"G={growth}")
+    return num_layers, growth
+
+
+def rdb_chain_int8_plain(x: torch.Tensor, qchain, out_dtype=None) -> torch.Tensor:
+    """Plain version, step by step the arithmetic of ``rdb_chain_int8_xla``
+    (``int32_taps=False``). int8 values are carried as integer-valued
+    float32 (exact); the concatenation leaves out the ``FEAT_OFF`` zero
+    channels, whose weight rows are zero."""
+    out_dtype = out_dtype or x.dtype
+    features = x.shape[-1]
+    num_layers, growth = _check_chain(qchain, features)
+    xq = quantize_activation(x, qchain[0][2][2, 0]).float()
+    with exact_float32():
+        for b, (wq, dq, meta) in enumerate(qchain):
+            _bsz, h, w, _ = xq.shape
+            feats = [xq]
+            for i in range(num_layers):
+                inp = torch.cat(feats, dim=-1)
+                wi = wq[i][FEAT_OFF:]
+                pad = F.pad(inp, (0, 0, 1, 1, 1, 1))
+                acc = torch.zeros((*inp.shape[:3], growth), dtype=torch.float32, device=x.device)
+                for dy in range(3):
+                    yi = int_products(pad[:, dy:dy + h], wi[:, 3 * dy * growth:(3 * dy + 3) * growth])
+                    for dx in range(3):
+                        c0 = (3 * dy + dx) * growth
+                        yb = (yi[:, :, dx:dx + w, dx * growth:(dx + 1) * growth]
+                              * dq[i, c0:c0 + growth]).to(torch.bfloat16)
+                        acc = acc + yb.float()
+                f = torch.relu(acc + meta[0, i * growth:(i + 1) * growth])
+                feats.append(torch.clamp(
+                    torch.round(f * meta[3, i * growth:(i + 1) * growth]), -QMAX, QMAX))
+            lff = int_products(torch.cat(feats, dim=-1), wq[num_layers][FEAT_OFF:])
+            out = ((lff * meta[1, :features] + meta[1, features:2 * features]) * RES_SCALE
+                   + xq * meta[2, 0])
+            if b == len(qchain) - 1:
+                return out.to(out_dtype)
+            xq = torch.clamp(torch.round(out / qchain[b + 1][2][2, 0]), -QMAX, QMAX)
+    raise ValueError("empty int8 RDB chain")
+
+
+def lff_launch_i8(cat: torch.Tensor, ccat: int, lw: torch.Tensor, ldq: torch.Tensor,
+                  lbias: torch.Tensor, s_in: torch.Tensor, s_next: torch.Tensor,
+                  out: torch.Tensor) -> None:
+    """Launch ``nt_rdb_lff_i8``: fuse channels [0, ccat) of the int8 ``cat``
+    into channels [0, C) of ``out`` (int8 requantised at ``s_next``, or the
+    real value in bfloat16/float32). ``lw`` int8 ``(C, ceil16(ccat))``."""
+    b, h, w, ccs = cat.shape
+    c = lw.shape[0]
+    if (tuple(lw.shape) != (c, _ceil_to(ccat, 16)) or ccat > ccs or ccs % 16
+            or tuple(ldq.shape) != (c,) or tuple(lbias.shape) != (c,)
+            or s_in.numel() < 1 or s_next.numel() < 1
+            or out.shape[:3] != cat.shape[:3] or out.shape[-1] < c):
+        raise ValueError(f"int8 RDB fusion: weights {tuple(lw.shape)}, factors "
+                         f"{tuple(ldq.shape)}/{tuple(lbias.shape)} or output "
+                         f"{tuple(out.shape)} do not fit {ccat} of {ccs} input channels")
+    tensors = (cat, lw, ldq, lbias, s_in, s_next, out)
+    if not (cat.dtype == lw.dtype == torch.int8 and ldq.dtype == lbias.dtype == s_in.dtype
+            == s_next.dtype == torch.float32 and all(t.is_contiguous() for t in tensors)
+            and cat.data_ptr() % 16 == 0 and lw.data_ptr() % 16 == 0):
+        raise ValueError("int8 RDB fusion takes contiguous int8 activations and weights "
+                         "(16-byte aligned) and float32 factors")
+    _build.launch("nt_rdb_lff_i8", cat.device, cat.data_ptr(), ccs, ccat, lw.data_ptr(),
+                  ldq.data_ptr(), lbias.data_ptr(), s_in.data_ptr(), s_next.data_ptr(),
+                  out.data_ptr(), out.shape[-1], c, b, h, w, _build.dtype_code(out))
+
+
+def rdb_chain_int8_apply(x: torch.Tensor, qchain, out_dtype=None) -> torch.Tensor:
+    """The quantised RDB stack: (B, H, W, C) → (B, H, W, C) in ``out_dtype``
+    (default: x's), int8 between blocks."""
+    out_dtype = out_dtype or x.dtype
+    b, h, w, c = x.shape
+    num_layers, growth = _check_chain(qchain, c)
+    if not dispatch.use_kernel(x, *(t for wq, dq, meta in qchain for t in (*wq, dq, meta))):
+        return rdb_chain_int8_plain(x, qchain, out_dtype)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"int8 RDB output must be float32 or bfloat16, got {out_dtype}")
+    ccat = c + num_layers * growth
+    # Two concatenation buffers: block k reads one and writes the next
+    # block's int8 input into channels [0, C) of the other.
+    cats = [torch.empty((b, h, w, _ceil_to(ccat, 16)), dtype=torch.int8, device=x.device)
+            for _ in range(min(len(qchain), 2))]
+    cats[0][..., :c] = quantize_activation(x, qchain[0][2][2, 0])
+    out = None
+    for k, (wq, dq, meta) in enumerate(qchain):
+        cat = cats[k % 2]
+        for i in range(num_layers):
+            cin = c + growth * i
+            conv_layer_launch_i8(cat, cin, tap_major(wq[i][FEAT_OFF:], 9, growth, growth),
+                                 dq[i].contiguous(), meta[0, i * growth:(i + 1) * growth],
+                                 meta[3, i * growth:(i + 1) * growth], cat, cin, relu=True)
+        lw = F.pad(wq[num_layers][FEAT_OFF:].t(), (0, _ceil_to(ccat, 16) - ccat)).contiguous()
+        if k == len(qchain) - 1:
+            out = torch.empty((b, h, w, c), dtype=out_dtype, device=x.device)
+            s_next = meta[2, :1]
+        else:
+            out, s_next = cats[(k + 1) % 2], qchain[k + 1][2][2, :1]
+        lff_launch_i8(cat, ccat, lw, meta[1, :c], meta[1, c:2 * c], meta[2, :1], s_next, out)
+        dispatch.launches["rdb_int8"] += 1
+    return out

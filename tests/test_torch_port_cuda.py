@@ -11,6 +11,10 @@ relative to max|plain|: d2s bit-exact; float32 1e-4 (correlation 1e-5),
 TF32 off; bfloat16 at the JAX package's kernel-gate levels (correlation
 1e-2, conv chain 2.4e-2, RDB 1.56e-2), since rounding to bfloat16 at
 different sums can flip an intermediate by one unit in the last place.
+The int8 kernels are held at the JAX package's kernel-vs-mirror levels: a
+conv chain within 2 x its largest activation scale, an RDB block with
+float32 output within 1e-4, a chain of blocks within 4 x its largest
+scale (one int8 step of a requantised intermediate may flip).
 """
 
 import importlib
@@ -19,7 +23,7 @@ import pytest
 import torch
 
 from nerve_tpu_torch import ops
-from nerve_tpu_torch.ops import conv_chain, correlation, dispatch, rdb
+from nerve_tpu_torch.ops import conv_chain, conv_chain_int8, correlation, dispatch, rdb, rdb_int8
 
 d2s = importlib.import_module("nerve_tpu_torch.ops.pixel_shuffle")
 
@@ -117,3 +121,51 @@ def test_rdb(cuda, dtype):
     plist = [[p.to(dtype) for p in _rdb_params(g, 16, cuda)] for _ in range(2)]
     x = _rand(g, 1, 10, 33, 16).to(cuda, dtype)
     _check("rdb", ops.rdb_chain_apply(x, plist), rdb.rdb_chain_plain(x, plist), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", ["head", "list_1x1", "flow_like"])
+def test_conv_chain_int8(cuda, out_dtype, site):
+    g = torch.Generator().manual_seed(4)
+    if site == "head":  # K=3: the input channels pad to 32 in shared memory
+        xs, params = [_rand(g, 1, 13, 37, 3)], _conv_params(g, [3, 24], [3], cuda)
+        params[-1] = (*params[-1][:2], "relu")
+    elif site == "list_1x1":  # three frames, a 1x1 layer, a 12-channel end
+        xs = [_rand(g, 2, 9, 35, 8) for _ in range(3)]
+        params = _conv_params(g, [24, 40, 20, 12], [3, 1, 3], cuda)
+    else:  # K=81 and a 2-channel end, as the flow head
+        xs, params = [_rand(g, 2, 11, 17, 81)], _conv_params(g, [81, 48, 32, 2], [3, 3, 3], cuda)
+    xs = [x.to(cuda, torch.bfloat16) for x in xs]
+    scales = conv_chain_int8.calibrate_conv_chain(xs, params)
+    qchain = conv_chain_int8.quantize_conv_chain(params, scales)
+    cout = params[-1][0].shape[-1]
+    n0 = dispatch.launches["conv_chain_int8"]
+    got = ops.conv_chain_int8_apply(xs, qchain, cout, out_dtype=out_dtype)
+    assert dispatch.launches["conv_chain_int8"] == n0 + len(params)
+    ref = conv_chain_int8.conv_chain_int8_plain(xs, *qchain, cout, out_dtype)
+    assert got.shape == ref.shape and got.dtype == ref.dtype == out_dtype
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 2 * scales.max().item(), f"max|err| {err}, scales {scales.tolist()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [(16, 5, 32), (24, 3, 16)])
+def test_rdb_int8(cuda, geometry):
+    c, layers, growth = geometry
+    g = torch.Generator().manual_seed(5)
+    plist = [_rdb_params(g, c, cuda, layers, growth) for _ in range(3)]
+    x = _rand(g, 1, 10, 33, c, std=0.5).to(cuda)
+    scales = rdb_int8.calibrate_rdb_chain(x, plist)
+    qchain = rdb_int8.quantize_rdb_chain(plist, scales)
+    for blk in qchain:  # one block, float32 out: the whole arithmetic
+        got = ops.rdb_chain_int8_apply(x, (blk,), out_dtype=torch.float32)
+        ref = rdb_int8.rdb_chain_int8_plain(x, (blk,), torch.float32)
+        assert (got - ref).abs().max().item() <= 1e-4
+    n0 = dispatch.launches["rdb_int8"]
+    got = ops.rdb_chain_int8_apply(x.bfloat16(), qchain)
+    assert dispatch.launches["rdb_int8"] == n0 + len(qchain)
+    ref = rdb_int8.rdb_chain_int8_plain(x.bfloat16(), qchain)
+    assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == x.shape
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 4 * scales.max().item(), f"max|err| {err}, scales {scales.max().item()}"
