@@ -1,15 +1,16 @@
-"""Drive the PyTorch port's flagship streaming SR path once on an NVIDIA GPU.
+"""Drive the PyTorch port's SR serving paths once on an NVIDIA GPU.
 
-    python3 chip_smoke.py              # the checks below, ~90 s on an H100 with the build
-    python3 chip_smoke.py --profile build/traces   # also profile both slices
+    python3 chip_smoke.py              # the checks below, ~2 min on an H100 with the build
+    python3 chip_smoke.py --profile build/traces   # also profile the three slices
 
 Phases, each of which raises on failure and prints its wall time:
 
 1. Device: the card's name and power limit (``nvidia-smi``); TF32 off.
 2. Build: ``nvcc`` compiles ``nerve_tpu_torch/csrc`` for ``sm_90a``.
-3. Kernels: each of the six CUDA kernels against its plain PyTorch version
+3. Kernels: each of the eight CUDA kernels against its plain PyTorch version
    on the card, at a small ragged shape and at the serving shapes of the
-   flagship path (1080p → 2160p), with median times from CUDA events, the
+   flagship path (1080p → 2160p) and, for the depthwise layer and the planar
+   chain, of the lightweight body at 1080p, with median times from CUDA events, the
    least time the card could take for the same work (``bound_ms``) and,
    where one PyTorch call computes the same function, that call's time
    (``library_ms``). The bf16 kernels run in bfloat16 and float32; the int8
@@ -26,6 +27,16 @@ Phases, each of which raises on failure and prints its wall time:
    ``conv_chain_int8``, ``correlation`` and ``d2s_packed`` must launch and
    ``rdb`` and ``conv_chain`` must not; the output must agree with the int8
    plain versions' and lie within ``INT8_MIN_PSNR`` dB of the bf16 slice's.
+6. Lightweight slice: an untrained ``LightweightSuperResolution`` (zero
+   tail) must return the clipped bicubic upscale within 2⁻⁸; then the model
+   with every parameter and BN statistic seeded, in bfloat16, runs frame by
+   frame over the same video with ``"packed"`` output. ``conv_chain``,
+   ``conv_chain_dw3`` and ``d2s_packed`` must launch (6, 4 and 1 per frame),
+   the flagship's other kernels must not, and the output must agree with
+   the plain versions' run. Last, the same body runs through
+   ``ops.planar_chain_apply`` (the one-launch planar chain) on each planar
+   frame: ``planar_chain`` must launch once per frame and nothing else, and
+   its result must agree with the per-layer body's.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -51,6 +62,7 @@ import torch.nn.functional as F
 
 from nerve_tpu_torch import ops
 from nerve_tpu_torch.models import (
+    LightweightSuperResolution,
     SuperResolutionNet,
     quantize_sr,
     streaming_prime,
@@ -62,6 +74,7 @@ from nerve_tpu_torch.ops import (
     conv_chain_int8,
     correlation,
     dispatch,
+    planar_chain,
     rdb,
     rdb_int8,
 )
@@ -79,6 +92,13 @@ SLICE_MAX_ABS, SLICE_MEAN_ABS = 2e-2, 5e-4
 # that flips between the two runs moves the output by less than this.
 INT8_MAX_ABS, INT8_MEAN_ABS = 2e-2, 1e-3
 INT8_MIN_PSNR = 30.0  # dB, int8 slice vs bf16 slice (tests/test_quantize.py)
+# The lightweight slice, kernels vs plain versions. Measured 3.9e-3 and
+# 2.5e-9 on an H100 (a few one-ulp bf16 flips in 25M outputs; the
+# depthwise layers are bit-exact); limits ~5x and ~6x that.
+LIGHT_MAX_ABS, LIGHT_MEAN_ABS = 2e-2, 1.5e-8
+# Its body through the planar chain vs through the per-layer kernels,
+# relative to max|per-layer|: the conv-chain level.
+PLANAR_BODY_REL = 2.4e-2
 # H100 SXM data sheet: device memory rate and dense tensor-core peaks.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
@@ -97,6 +117,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, plain version)
                     "nerve_tpu/ops/correlation.py:52", correlation.correlation_plain),
     "conv_chain": ("nerve_tpu_torch/csrc/conv_chain.cu",
                    "nerve_tpu/ops/conv_chain.py:169", conv_chain.conv_chain_plain),
+    "conv_chain_dw3": ("nerve_tpu_torch/csrc/dwconv3.cu",
+                       "nerve_tpu/ops/conv_chain.py:169", conv_chain.conv_chain_plain),
+    "planar_chain": ("nerve_tpu_torch/csrc/planar_chain.cu",
+                     "nerve_tpu/ops/planar_chain.py:107", planar_chain.planar_chain_plain),
     "rdb": ("nerve_tpu_torch/csrc/rdb.cu", "nerve_tpu/ops/rdb.py:121", rdb.rdb_chain_plain),
     "conv_chain_int8": ("nerve_tpu_torch/csrc/conv_int8.cu",
                         "nerve_tpu/ops/conv_chain_int8.py:135", conv_chain_int8_plain_op),
@@ -105,17 +129,20 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, plain version)
 }
 # bf16 kernels: limits (float32, bfloat16) relative to max|plain|.
 BF16_LIMITS = {"d2s_packed": (0.0, 0.0), "correlation": (1e-5, 1e-2),
-               "conv_chain": (1e-4, 2.4e-2), "rdb": (1e-4, 1.56e-2)}
+               "conv_chain": (1e-4, 2.4e-2), "conv_chain_dw3": (1e-4, 2.4e-2),
+               "planar_chain": (1e-4, 2.4e-2), "rdb": (1e-4, 1.56e-2)}
+CHAIN_KERNELS = ("conv_chain", "conv_chain_dw3", "planar_chain")
 # The ops the model calls, and the plain version each is replaced by in
 # the reference runs.
 OPS_OF = {"d2s_packed": "depth_to_space_packed", "correlation": "correlation_volume",
-          "conv_chain": "conv_chain_apply", "rdb": "rdb_chain_apply",
+          "conv_chain": "conv_chain_apply", "conv_chain_dw3": "conv_chain_apply",
+          "planar_chain": "planar_chain_apply", "rdb": "rdb_chain_apply",
           "conv_chain_int8": "conv_chain_int8_apply", "rdb_int8": "rdb_chain_int8_apply"}
 
 
 @contextlib.contextmanager
 def plain_ops():
-    """Route the model's six kernel ops to their plain versions."""
+    """Route the models' kernel ops to their plain versions."""
     saved = {op: getattr(ops, op) for op in OPS_OF.values()}
     for name, op in OPS_OF.items():
         setattr(ops, op, KERNELS[name][2])
@@ -208,14 +235,18 @@ def library_d2s(x):
 
 
 def cudnn_chain(params, dt):
-    """cuDNN ``F.conv2d`` per layer, channels_last, bias in the call."""
-    layers = [(w.to(dt).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last),
-               b.to(dt), act, w.shape[0] // 2) for w, b, act in params]
+    """cuDNN ``F.conv2d`` per layer (``groups=C`` for a depthwise one),
+    channels_last, bias in the call."""
+    layers = []
+    for w, b, act in params:
+        wk = w.permute(2, 0, 1).unsqueeze(1) if w.ndim == 3 else w.permute(3, 2, 0, 1)
+        layers.append((wk.to(dt).contiguous(memory_format=torch.channels_last), b.to(dt), act,
+                       w.shape[0] // 2, w.shape[2] if w.ndim == 3 else 1))
 
     def run(x):
         h = conv_chain._concat(x).permute(0, 3, 1, 2)
-        for w, b, act, pad in layers:
-            h = F.conv2d(h, w, b, padding=pad)
+        for w, b, act, pad, groups in layers:
+            h = F.conv2d(h, w, b, padding=pad, groups=groups)
             if act == "relu":
                 h = torch.relu(h)
         return h.permute(0, 2, 3, 1)
@@ -261,8 +292,22 @@ def bf16_kernel_cases(dev, dt, serving: bool):
         plist = [rdb_params(g, 16, dev, dt) for _ in range(2)]
         label = "small ragged"
 
+    # The seeded lightweight body: its four depthwise layers, each on a
+    # 32-channel activation, and the whole chain on a planar frame.
+    body = [(w.detach(), b.detach(), a) for w, b, a in seeded_lightweight(dev, 3).chain()]
+    dws = [e for e in body if e[0].ndim == 3]
+    shape = (1, H, W) if serving else (2, 13, 37)
+    dw_in = [torch.rand((*shape, 32), generator=g).to(dev, dt) for _ in dws]
+    xp = torch.rand((shape[0], 3, *shape[1:]), generator=g).to(dev, dt)
+    lw_label = "lightweight body 1080p" if serving else label
+    dw_libs = [cudnn_chain([e], dt) for e in dws]
+    planar_lib = cudnn_chain(body, dt)
+
     def chains(fn):
         return lambda: [fn(xx, p) for xx, p in sites]
+
+    def dw_layers(fn):
+        return lambda: [fn(a, [e]) for a, e in zip(dw_in, dws)]
 
     libs = [(xx, cudnn_chain(p, dt)) for xx, p in sites]
     corr_ops = 2 * 81 * f1.shape[-1] * pixels(f1)
@@ -280,6 +325,18 @@ def bf16_kernel_cases(dev, dt, serving: bool):
                        lambda: [fn(xx) for xx, fn in libs],
                        bound(sum(chain_ops(p, pixels(xx)) for xx, p in sites), chain_bytes,
                              "bf16")),
+        "conv_chain_dw3": (lw_label, dw_layers(ops.conv_chain_apply),
+                           dw_layers(conv_chain.conv_chain_plain),
+                           lambda: [fn(a) for a, fn in zip(dw_in, dw_libs)],
+                           bound(sum(chain_ops([e], pixels(a)) for a, e in zip(dw_in, dws)),
+                                 sum(2 * nbytes(a) + nbytes(*e[:2]) for a, e in zip(dw_in, dws)),
+                                 "bf16")),
+        "planar_chain": (lw_label, lambda: ops.planar_chain_apply(xp, body),
+                         lambda: planar_chain.planar_chain_plain(xp, body),
+                         lambda: planar_lib(xp.permute(0, 2, 3, 1)),
+                         bound(chain_ops(body, xp[0, 0].numel() * xp.shape[0]),
+                               nbytes(xp) * 5 + nbytes(*(t for w, b, _ in body for t in (w, b))),
+                               "bf16")),
         "rdb": (label, lambda: ops.rdb_chain_apply(xr, plist),
                 lambda: rdb.rdb_chain_plain(xr, plist), None,
                 bound(rdb_ops(plist, pixels(xr)), 2 * nbytes(xr) + nbytes(*sum(plist, [])),
@@ -370,7 +427,7 @@ def check_kernels(dev) -> dict:
         for dt in (torch.float32, torch.bfloat16):
             for name, (label, kern, plain, lib, work) in bf16_kernel_cases(dev, dt, serving).items():
                 lim = BF16_LIMITS[name][dt == torch.bfloat16]
-                rel = 1.0 if name == "conv_chain" else 0.0
+                rel = 1.0 if name in CHAIN_KERNELS else 0.0
                 err, _n, ms, pms = compare(name, label, dt, kern, plain, lim, rel)
                 if serving and dt == torch.bfloat16:
                     summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
@@ -395,23 +452,18 @@ def check_kernels(dev) -> dict:
 # --------------------------------------------------------------------------- #
 # The slices
 # --------------------------------------------------------------------------- #
-def seeded_model(dev, seed: int, **quant) -> SuperResolutionNet:
-    """The flagship model with every parameter and BN statistic seeded and
-    non-zero (the zero-initialised flow3/upsampler would make the flow 0).
-    ``quant`` (``quantized``, ``quantized_chains``) adds int8 state, which
-    draws nothing: the same seed gives the same weights with or without it."""
+def seed_all(model, seed: int, small=("upsampler",)):
+    """Overwrite every parameter and BN statistic with seeded non-zero values
+    (a zero-initialised layer would hide the path behind it); kernels whose
+    name holds a word of ``small`` are scaled by 0.1."""
     g = torch.Generator().manual_seed(seed)
-    model = SuperResolutionNet(scale_factor=2, num_features=FEATURES,
-                               num_residual_blocks=BLOCKS, temporal_window=1,
-                               flow_downsample=2, dtype=torch.bfloat16, device=dev,
-                               **quant).eval()
     with torch.no_grad():
         for name, p in model.named_parameters():
             if p.ndim == 1:
                 v = 1.0 + 0.1 * _randn(g, p.shape) if name.endswith("scale") else 0.05 * _randn(g, p.shape)
             else:
                 v = _randn(g, p.shape, math.prod(p.shape[:-1]) ** -0.5)
-                if "upsampler" in name:
+                if any(word in name for word in small):
                     v = v * 0.1
             p.copy_(v)
         for name, buf in model.named_buffers():
@@ -419,6 +471,24 @@ def seeded_model(dev, seed: int, **quant) -> SuperResolutionNet:
                 buf.copy_(torch.rand(buf.shape, generator=g) + 0.5 if name.endswith("var")
                           else 0.1 * _randn(g, buf.shape))
     return model
+
+
+def seeded_model(dev, seed: int, **quant) -> SuperResolutionNet:
+    """The flagship model, seeded (the zero-initialised flow3/upsampler would
+    make the flow 0). ``quant`` (``quantized``, ``quantized_chains``) adds
+    int8 state, which draws nothing: the same seed gives the same weights
+    with or without it."""
+    return seed_all(SuperResolutionNet(scale_factor=2, num_features=FEATURES,
+                                       num_residual_blocks=BLOCKS, temporal_window=1,
+                                       flow_downsample=2, dtype=torch.bfloat16, device=dev,
+                                       **quant).eval(), seed)
+
+
+def seeded_lightweight(dev, seed: int) -> LightweightSuperResolution:
+    """The lightweight model in bfloat16, seeded (the zero-initialised tail
+    would make the output the plain bicubic)."""
+    return seed_all(LightweightSuperResolution(scale_factor=2, dtype=torch.bfloat16,
+                                               device=dev).eval(), seed, small=("tail",))
 
 
 def run_stream(model, video):
@@ -443,12 +513,25 @@ def check_outputs(outs):
             raise AssertionError("output not finite or outside [0, 1]")
 
 
-def drive(model, video, launched, idle):
+def run_frames(model, video):
+    """Each frame through the single-frame model, ``"packed"``; (outputs, ms
+    per timed frame)."""
+    outs, times = [], []
+    for frame in video:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(model(frame, "packed"))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return outs, times[1:]
+
+
+def drive(model, video, launched, idle, run=run_stream):
     """The main path with every count set to 0 just before and read just
     after; ``launched`` kernels must have run, ``idle`` ones must not."""
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launches()
-    outs, times = run_stream(model, video)
+    outs, times = run(model, video)
     launches = dict(dispatch.launches)
     print(f"slice launches {launches}", flush=True)
     missing = [k for k in launched if launches[k] == 0]
@@ -460,10 +543,10 @@ def drive(model, video, launched, idle):
     return outs, times, launches, torch.cuda.max_memory_allocated() / 2**30
 
 
-def against_plain(model, video, outs, max_abs, mean_abs):
+def against_plain(model, video, outs, max_abs, mean_abs, run=run_stream):
     dispatch.reset_launches()
     with plain_ops():
-        ref, ptimes = run_stream(model, video)
+        ref, ptimes = run(model, video)
     if any(dispatch.launches.values()):
         raise AssertionError(f"the plain run launched kernels: {dispatch.launches}")
     dmax = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs, ref))
@@ -514,24 +597,106 @@ def run_int8_slice(model, video, bf16_outs, bf16_ms, card: str):
     return launches
 
 
+def check_untrained_lightweight(dev, frame) -> float:
+    """The zero-initialised tail makes the output the clipped bicubic
+    upscale (the JAX gate's check, to 2⁻⁸: the model casts to bfloat16)."""
+    model = LightweightSuperResolution(scale_factor=2, dtype=torch.bfloat16, device=dev,
+                                       generator=torch.Generator().manual_seed(2)).eval()
+    out = model(frame).float()
+    bicubic = ops.pixel_shuffle(ops.upsample_bicubic_channels(frame, 2), 2).clamp(0.0, 1.0)
+    err = (out - bicubic).abs().max().item()
+    print(f"lightweight untrained vs clipped bicubic: max|d| {err:.3e} (limit {2**-8:.3e})",
+          flush=True)
+    if not err <= 2.0**-8:
+        raise AssertionError("the untrained lightweight model is not the clipped bicubic")
+    return err
+
+
+def run_body(model, video, planar: bool):
+    """The model's BN-folded body alone on each frame: per layer through
+    ``ops.conv_chain_apply`` (NHWC), or in one launch through
+    ``ops.planar_chain_apply`` (planar); (residuals NHWC, ms per timed frame)."""
+    outs, times = [], []
+    with torch.inference_mode():
+        for frame in video:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = frame.to(model.dtype)
+            if planar:
+                y = ops.planar_chain_apply(x.permute(0, 3, 1, 2), model.chain()).permute(0, 2, 3, 1)
+            else:
+                y = ops.conv_chain_apply(x, model.chain())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            outs.append(y)
+    return outs, times[1:]
+
+
+def run_lightweight_slice(dev, video, card: str):
+    """The lightweight slice (phase 6); returns the launch counts of its
+    per-layer run and of its planar-chain run."""
+    check_untrained_lightweight(dev, video[0])
+    model = seeded_lightweight(dev, seed=0)
+    nframes = len(video)
+    outs, times, launches, peak = drive(
+        model, video, ("conv_chain", "conv_chain_dw3", "d2s_packed"),
+        ("correlation", "rdb", "conv_chain_int8", "rdb_int8", "planar_chain"), run_frames)
+    want = {"conv_chain": 6 * nframes, "conv_chain_dw3": 4 * nframes, "d2s_packed": nframes}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"lightweight launches {launches}, expected {want}")
+    ptimes = against_plain(model, video, outs, LIGHT_MAX_ABS, LIGHT_MEAN_ABS, run_frames)
+    print(f"slice lightweight 1080p->2160p bf16 packed: {statistics.median(times):.3f} ms/frame "
+          f"with kernels, {statistics.median(ptimes):.3f} ms/frame plain (median of "
+          f"{len(times)} frames; peak {peak:.2f} GiB) on {card}", flush=True)
+    del outs
+    # The body through the one-launch planar chain, against the per-layer body.
+    dispatch.reset_launches()
+    planar, ptimes = run_body(model, video, planar=True)
+    planar_launches = dict(dispatch.launches)
+    print(f"planar body launches {planar_launches}", flush=True)
+    if planar_launches["planar_chain"] != nframes or sum(planar_launches.values()) != nframes:
+        raise AssertionError("the planar body did not run one planar_chain launch per frame")
+    layered, ltimes = run_body(model, video, planar=False)
+    scale = max(y.float().abs().max().item() for y in layered)
+    dmax = max((a.float() - b.float()).abs().max().item() for a, b in zip(planar, layered))
+    print(f"lightweight body, planar chain vs per-layer kernels: max|d| {dmax:.3e} (limit "
+          f"{PLANAR_BODY_REL * scale:.3e}); body {statistics.median(ptimes):.3f} ms/frame "
+          f"planar chain, {statistics.median(ltimes):.3f} ms/frame per layer", flush=True)
+    if not dmax <= PLANAR_BODY_REL * scale:
+        raise AssertionError("the planar chain's body disagrees with the per-layer body")
+    return model, launches, planar_launches
+
+
 # --------------------------------------------------------------------------- #
 # Profile (--profile)
 # --------------------------------------------------------------------------- #
-def profile(models, video, out_dir: Path) -> None:
-    """torch.profiler over 2 steps after 2 warm-up steps of each model; the
-    device's busy time is the union of kernel intervals in the trace."""
+def streamer(model):
+    """A frame-by-frame step function for the flagship, primed on the first call."""
+    carry = []
+
+    def step(frame):
+        if not carry:
+            carry.append(streaming_prime(model, frame))
+            return
+        carry[0], _ = streaming_step(model, carry[0], frame, "packed")
+    return step
+
+
+def profile(steppers, video, out_dir: Path) -> None:
+    """torch.profiler over 2 steps after 3 warm-up steps of each step
+    function; the device's busy time is the union of kernel intervals in the
+    trace."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    for name, model in models.items():
-        carry = streaming_prime(model, video[0])
-        for frame in video[1:3]:
-            carry, _ = streaming_step(model, carry, frame, "packed")
+    for name, step in steppers.items():
+        for frame in video[:3]:
+            step(frame)
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for frame in video[3:5]:
-                carry, _ = streaming_step(model, carry, frame, "packed")
+                step(frame)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         trace = out_dir / f"trace_{name}.json"
@@ -592,12 +757,19 @@ def main() -> int:
     with phase("int8 slice"):
         int8_model = seeded_model(dev, seed=0, quantized=True, quantized_chains=True)
         launches8 = run_int8_slice(int8_model, video, bf16_outs, bf16_ms, card)
+    del bf16_outs
+    with phase("lightweight slice"):
+        light_model, launches_lw, launches_planar = run_lightweight_slice(dev, video, card)
     if args.profile:
         with phase("profile"):
-            profile({"bf16": bf16_model, "int8": int8_model}, video, Path(args.profile))
+            profile({"bf16": streamer(bf16_model), "int8": streamer(int8_model),
+                     "lightweight": lambda frame: light_model(frame, "packed")},
+                    video, Path(args.profile))
+    # Each kernel's launches from the run of the path that carries it.
+    runs = {"conv_chain_int8": launches8, "rdb_int8": launches8,
+            "conv_chain_dw3": launches_lw, "planar_chain": launches_planar}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": (launches8 if name.endswith("int8") else launches)[name],
-                **summary[name]}
+                "launches": runs.get(name, launches)[name], **summary[name]}
                for name, (src, rep, _plain) in KERNELS.items()]
     print(f"total {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -6,8 +6,12 @@
 //
 //   out[b,y,x,(i+d)(2d+1)+(j+d)] = (1/C) sum_c f1[b,y,x,c] * f2[b,y+i,x+j,c]
 //
-// with zeros outside f2. Products and sums are float32; the result is
-// rounded once to the input dtype.
+// with zeros outside f2. Numerics are the TPU kernels' (correlation.py:74,
+// :177): each product is rounded to the input dtype (in bfloat16 the float32
+// product of two bfloat16 values is exact, so this is one rounding), the
+// products are summed in float32, the sum is multiplied by the float32 1/C
+// and rounded once to the input dtype. `_corr_kernel` is the same function
+// on the same NHWC input and output, so this kernel covers both TPU rows.
 //
 // Bound: at the serving shape (2 x 540 x 960 x 64, d=4) it is 81 FMAs per
 // input element, so shared-memory reads bound it, not device memory. Each
@@ -27,6 +31,7 @@ namespace {
 constexpr int TH = 8, TW = 32, CK = 8, NTHREADS = TH * TW;
 
 // Loads widen to float32; stores round to nearest even, as torch's .to() does.
+// round_product rounds a float32 product of two T values to T.
 __device__ __forceinline__ float nt_load(float v) { return v; }
 __device__ __forceinline__ float nt_load(__nv_bfloat16 v) { return __bfloat162float(v); }
 template <typename T>
@@ -36,6 +41,10 @@ __device__ __forceinline__ float nt_store<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 nt_store<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <typename T>
+__device__ __forceinline__ float round_product(float a, float b) {
+  return nt_load(nt_store<T>(__fmul_rn(a, b)));
 }
 
 template <typename T, int D>
@@ -78,7 +87,10 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int i = 0; i < D; ++i)
 #pragma unroll
         for (int j = 0; j < D; ++j)
-          acc[i * D + j] = fmaf(a, s2[k][ty + i][tx + j], acc[i * D + j]);
+          acc[i * D + j] = sizeof(T) == 4
+                               ? fmaf(a, s2[k][ty + i][tx + j], acc[i * D + j])
+                               : __fadd_rn(acc[i * D + j],
+                                           round_product<T>(a, s2[k][ty + i][tx + j]));
     }
   }
 

@@ -33,6 +33,23 @@ int nt_conv2d(const void* x, int x_cstride, int cin, const float* w,
               int cout, int b, int h, int w_, int ksize, int relu, int dtype,
               void* stream);
 
+// One SAME depthwise 3x3 layer: out[..., c] = sum over the 9 taps of
+// x[y+dy-1, x+dx-1, c] * w[dy, dx, c], rounded to the dtype, + bias[c],
+// relu if asked, rounded to the dtype. x and out (B, H, W, c), c <= 64;
+// w (3, 3, c).
+int nt_dwconv3(const void* x, const float* w, const float* bias, void* out,
+               int c, int b, int h, int w_, int relu, int dtype, void* stream);
+
+// A whole chain of SAME 3x3 / 1x1 / depthwise 3x3 layers on planar
+// x (B, C0, H, W) -> out (B, Cout, H, W), every intermediate in shared
+// memory. `layers` is a host array of 6 ints per layer (kind 0 = 3x3,
+// 1 = 1x1, 2 = depthwise; cin, cout <= 64; relu; byte offsets of the
+// layer's weights and bias in `wpack`, multiples of 16); see
+// ops/planar_chain.py `pack_planar_chain` for the weight layouts. nl <= 16.
+int nt_planar_chain(const void* x, void* out, const void* wpack,
+                    const int* layers, int nl, int b, int h, int w_,
+                    int dtype, void* stream);
+
 // RDB local feature fusion: out = (cat . w + bias) * res_scale + cat[..., :c]
 // with cat (B, H, W, ccat), w (ccat, c), out (B, H, W, c).
 int nt_rdb_lff(const void* cat, int ccat, const float* w, const float* bias,

@@ -1,6 +1,10 @@
 """Models of nerve_tpu_torch (the SR serving slice of ``nerve_tpu.models``)."""
 
-from nerve_tpu_torch.models.bridge import load_flax_variables, sr_from_flax  # noqa: F401
+from nerve_tpu_torch.models.bridge import (  # noqa: F401
+    lightweight_from_flax,
+    load_flax_variables,
+    sr_from_flax,
+)
 from nerve_tpu_torch.models.quantize import (  # noqa: F401
     calibrate_sr_scales,
     quantize_sr,
@@ -11,4 +15,7 @@ from nerve_tpu_torch.models.streaming import (  # noqa: F401
     streaming_prime,
     streaming_step,
 )
-from nerve_tpu_torch.models.super_resolution import SuperResolutionNet  # noqa: F401
+from nerve_tpu_torch.models.super_resolution import (  # noqa: F401
+    LightweightSuperResolution,
+    SuperResolutionNet,
+)

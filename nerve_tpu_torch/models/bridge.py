@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from nerve_tpu_torch.models.super_resolution import SuperResolutionNet
+from nerve_tpu_torch.models.super_resolution import LightweightSuperResolution, SuperResolutionNet
 
 COLLECTIONS = ("params", "batch_stats", "quant")
 
@@ -77,4 +77,13 @@ def sr_from_flax(variables_numpy: Mapping[str, Any], device="cuda",
     variables (with ``quantized``/``quantized_chains``, their ``"quant"``
     collection too), on the card unless ``device="cpu"``."""
     model = SuperResolutionNet(device=device, **config)
+    return load_flax_variables(model, variables_numpy).eval()
+
+
+def lightweight_from_flax(variables_numpy: Mapping[str, Any], device="cuda",
+                          **config) -> LightweightSuperResolution:
+    """A ``LightweightSuperResolution(**config)`` in eval mode holding the
+    flax variables (``params`` and ``batch_stats``), strictly, on the card
+    unless ``device="cpu"``."""
+    model = LightweightSuperResolution(device=device, **config)
     return load_flax_variables(model, variables_numpy).eval()

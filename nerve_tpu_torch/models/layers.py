@@ -187,12 +187,18 @@ class DepthwiseSeparableConv(nn.Module):
 
     The forward folds BatchNorm into the pointwise conv as the reference's
     ``as_entries`` does (layers.py:207-224) and runs the pair with the
-    rounding of ``_chain_xla``, in the input's dtype. It is plain PyTorch:
-    the reference forces this body to XLA too (super_resolution.py:75-78).
+    rounding of ``_chain_xla``, in the input's dtype. By default it is plain
+    PyTorch: the reference forces this body to XLA too
+    (super_resolution.py:75-78). ``use_fused`` (default off, as in the
+    reference) runs the pair through ``ops.conv_chain_apply`` in ``dtype``,
+    so on the card through the depthwise and dense conv kernels.
     """
 
-    def __init__(self, features: int, in_features: int, device=None, generator=None):
+    def __init__(self, features: int, in_features: int, device=None, generator=None,
+                 use_fused: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.use_fused = use_fused
+        self.dtype = dtype
         self.depthwise = KernelParams((3, 3, 1, in_features), device, generator)
         self.pointwise = KernelParams((1, 1, in_features, features), device, generator)
         self.BatchNorm_0 = BNParams(features, device)
@@ -204,7 +210,16 @@ class DepthwiseSeparableConv(nn.Module):
         return (self.depthwise.kernel[:, :, 0, :],
                 self.pointwise.kernel * inv, bn.bias - bn.mean * inv)
 
+    def as_entries(self):
+        """The block's two ``conv_chain_apply`` entries, BatchNorm folded into
+        the pointwise conv: (depthwise, zero bias, "none"), (pointwise, bias,
+        "relu")."""
+        kd, kp, bp = self.folded()
+        return [(kd, torch.zeros_like(kd[0, 0]), "none"), (kp, bp, "relu")]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_fused:
+            return ops.conv_chain_apply(x.to(self.dtype), self.as_entries())
         dt = x.dtype
         kd, kp, bp = self.folded()
         h = x.permute(0, 3, 1, 2)

@@ -1,11 +1,16 @@
-"""Motion-compensated temporal SR network (NHWC, inference only).
+"""The SR networks (NHWC, inference only).
 
-Counterpart of ``SuperResolutionNet`` and its parts in
-``nerve_tpu/models/super_resolution.py``: batched feature extraction → flow
+Counterpart of ``SuperResolutionNet`` with its parts and of
+``LightweightSuperResolution`` in ``nerve_tpu/models/super_resolution.py``.
+``SuperResolutionNet``: batched feature extraction → flow
 estimation and warp of every neighbour toward the centre → attention
 aggregation → residual dense blocks → global fusion + centre skip →
 upsampler conv + bicubic base in phase-channel space → clamp [0, 1] → one
 depth-to-space. Input (B, T, H, W, C) with T = 2·temporal_window + 1.
+
+``LightweightSuperResolution`` is single-frame: one BN-folded chain (head
+3×3, four depthwise-separable blocks, tail 3×3) through
+``ops.conv_chain_apply``, then the same bicubic epilogue.
 
 The kernel ops are called through the ``ops`` namespace
 (``ops.conv_chain_apply``, ``ops.correlation_volume``,
@@ -19,7 +24,7 @@ static scales from buffers that ``models.quantize.quantize_sr`` calibrates
 or ``models.bridge`` loads from the JAX ``"quant"`` collection. It is
 inference only: a quantised site raises in training mode.
 
-The model is built on the card unless the caller passes ``device="cpu"``.
+The models are built on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -78,6 +83,18 @@ class FeatureExtractor(nn.Module):
         for i in range(3):
             body = getattr(self, f"body{i}")(body)
         return body + feat
+
+
+def _epilogue(bicubic_ch: torch.Tensor, residual_ch: torch.Tensor, scale: int,
+              dtype: torch.dtype, output_layout: str) -> torch.Tensor:
+    """Bicubic base + residual in phase-channel space, clamped to [0, 1] in
+    float32, cast to ``dtype``, then one depth-to-space into the layout."""
+    out_ch = torch.clamp(bicubic_ch.float() + residual_ch.float(), 0.0, 1.0).to(dtype)
+    if output_layout == "planar":
+        return ops.pixel_shuffle_planar(out_ch, scale)
+    if output_layout == "packed":
+        return ops.depth_to_space_packed(out_ch, scale)
+    return ops.pixel_shuffle(out_ch, scale)
 
 
 class MotionEstimator(nn.Module):
@@ -277,13 +294,7 @@ class SuperResolutionNet(nn.Module):
         fused = self.gff(residual) + center_feat
         hr_residual_ch = self.upsampler(fused)
         bicubic_ch = ops.upsample_bicubic_channels(center_lr.to(self.dtype), s)
-        out_ch = torch.clamp(bicubic_ch.float() + hr_residual_ch.float(),
-                             0.0, 1.0).to(self.dtype)
-        if output_layout == "planar":
-            return ops.pixel_shuffle_planar(out_ch, s)
-        if output_layout == "packed":
-            return ops.depth_to_space_packed(out_ch, s)
-        return ops.pixel_shuffle(out_ch, s)
+        return _epilogue(bicubic_ch, hr_residual_ch, s, self.dtype, output_layout)
 
     def streaming_step(self, prev_feats: Sequence[torch.Tensor], center_feat: torch.Tensor,
                        next_feat: Sequence[torch.Tensor], center_lr: torch.Tensor,
@@ -319,3 +330,49 @@ class SuperResolutionNet(nn.Module):
                        for j in range(t)]
         return self.fuse_from_features(aligned, center_feat, lr_frames[:, center],
                                        output_layout)
+
+
+class LightweightSuperResolution(nn.Module):
+    """Single-frame lightweight SR network: (B, H, W, C) → SR frame in
+    [0, 1], in the layout ``output_layout`` names (see
+    ``SuperResolutionNet.fuse_from_features``).
+
+    Parameters carry the flax names (``head``, ``body0``..``body3``,
+    ``tail``); the tail starts at zero, so an untrained model returns the
+    clamped bicubic upscale. The forward builds the BN-folded 10-entry chain
+    (head 3×3 → 32 + relu, four (depthwise 3×3, pointwise 1×1 + relu)
+    blocks, tail 3×3 → C·s²) and runs it through ``ops.conv_chain_apply``
+    in ``dtype``; the bicubic base comes from the input in its own dtype.
+    Inference only: the reference's training path needs live BatchNorm
+    statistics, so a module in training mode raises (call ``.eval()``).
+    """
+
+    def __init__(self, in_channels: int = 3, scale_factor: int = 2,
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.scale_factor = scale_factor
+        self.dtype = dtype
+        kw = dict(device=resolve_device(device), generator=generator)
+        self.head = ConvParams(32, (3, 3), in_channels, **kw)
+        for i in range(4):
+            self.add_module(f"body{i}", DepthwiseSeparableConv(32, 32, dtype=dtype, **kw))
+        self.tail = ConvParams(in_channels * scale_factor**2, (3, 3), 32, zero_init=True, **kw)
+
+    def chain(self):
+        """The BN-folded whole-body chain, as ``conv_chain_apply`` entries."""
+        entries = [self.head.entry("relu")]
+        for i in range(4):
+            entries += getattr(self, f"body{i}").as_entries()
+        return entries + [self.tail.entry("none")]
+
+    @torch.inference_mode()
+    def forward(self, x: torch.Tensor, output_layout: str = "nhwc") -> torch.Tensor:
+        if self.training:
+            raise RuntimeError("LightweightSuperResolution is inference only: call .eval() first")
+        if output_layout not in OUTPUT_LAYOUTS:
+            raise ValueError(f"unknown output_layout {output_layout!r}")
+        s = self.scale_factor
+        residual_ch = ops.conv_chain_apply(x.to(self.dtype), self.chain())
+        bicubic_ch = ops.upsample_bicubic_channels(x, s)
+        return _epilogue(bicubic_ch, residual_ch, s, self.dtype, output_layout)

@@ -1,6 +1,7 @@
 """Build the CUDA kernels of ``nerve_tpu_torch/csrc`` and bind them with ctypes.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into
+One ``nvcc -c`` per ``csrc/*.cu``, all started together, compiles each
+source for Hopper (``sm_90a``); one more ``nvcc`` links the objects into
 one shared library with a plain C interface (``csrc/nerve_tpu_torch.h``).
 The library lands in ``build/nerve_tpu_torch/`` under the repository root,
 named by a hash of the sources and flags, so an edited source rebuilds and
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerve_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -34,6 +35,8 @@ SIGNATURES = {
     "nt_d2s_packed": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "nt_correlation": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "nt_conv2d": (_I, (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_dwconv3": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_planar_chain": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "nt_rdb_lff": (_I, (_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P)),
     "nt_conv2d_i8": (_I, (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     "nt_rdb_lff_i8": (_I, (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
@@ -66,16 +69,32 @@ def build() -> Path:
     lib = library_path()
     if lib.exists():
         return lib
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    log, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        log += [" ".join(cmd), out]
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{out}")
+    if not failed:
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log += [" ".join(link), proc.stdout]
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n{proc.stdout}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)
     return lib
 

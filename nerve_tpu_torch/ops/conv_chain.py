@@ -10,10 +10,10 @@ rounded to the input dtype, float32 accumulation, the convolution's sum
 rounded to the input dtype, float32 bias, activation, the layer's output
 rounded to the input dtype.
 
-A CUDA tensor runs ``csrc/conv_chain.cu``, one launch per layer; a list
-input is concatenated in device memory first. A CPU tensor runs
-``conv_chain_plain`` (``F.conv2d``). The depthwise layer has no CUDA kernel
-yet (ROADMAP.md, Queue 2): on a CUDA tensor it raises.
+A CUDA tensor runs one launch per layer: ``csrc/conv_chain.cu`` for a
+dense layer (counter ``conv_chain``), ``csrc/dwconv3.cu`` for a depthwise
+one (counter ``conv_chain_dw3``); a list input is concatenated in device
+memory first. A CPU tensor runs ``conv_chain_plain`` (``F.conv2d``).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from nerve_tpu_torch.ops import _build, dispatch
 
 Entry = Tuple[torch.Tensor, torch.Tensor, str]
+MAX_DW_CHANNELS = 64  # csrc/dwconv3.cu stages every channel of its tile
 
 
 def _layer_specs(params: Sequence[Entry]):
@@ -96,6 +97,25 @@ def conv_layer_launch(x: torch.Tensor, cin: int, w: torch.Tensor, bias: torch.Te
                   b, h, wd, k, int(relu), _build.dtype_code(x))
 
 
+def dwconv3_launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                   out: torch.Tensor, relu: bool) -> None:
+    """Launch ``nt_dwconv3``: one depthwise 3×3 layer, ``x`` → ``out``, both
+    contiguous (B, H, W, C) on CUDA. ``w`` float32 (3, 3, C), ``bias``
+    float32 (C,) (the caller rounds them)."""
+    b, h, wd, c = x.shape
+    if tuple(w.shape) != (3, 3, c) or tuple(bias.shape) != (c,) or out.shape != x.shape:
+        raise ValueError(f"depthwise layer {tuple(w.shape)}, bias {tuple(bias.shape)} does "
+                         f"not fit input {tuple(x.shape)} / output {tuple(out.shape)}")
+    if not 1 <= c <= MAX_DW_CHANNELS:
+        raise ValueError(f"the depthwise kernel takes 1..{MAX_DW_CHANNELS} channels, got {c}")
+    if not (x.is_contiguous() and out.is_contiguous() and w.is_contiguous()
+            and bias.is_contiguous() and out.dtype == x.dtype
+            and w.dtype == bias.dtype == torch.float32):
+        raise ValueError("depthwise layer takes contiguous tensors and float32 weights")
+    _build.launch("nt_dwconv3", x.device, x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                  out.data_ptr(), c, b, h, wd, int(relu), _build.dtype_code(x))
+
+
 def conv_chain_apply(x, params: Sequence[Entry]) -> torch.Tensor:
     """Run a conv(+relu) chain: (B, H, W, Cin) or a list → (B, H, W, Cout)."""
     xs = list(x) if isinstance(x, (list, tuple)) else [x]
@@ -107,16 +127,15 @@ def conv_chain_apply(x, params: Sequence[Entry]) -> torch.Tensor:
                          f"the first layer takes {specs[0][1]}")
     if not dispatch.use_kernel(*xs, *(p for w, b, _ in params for p in (w, b))):
         return conv_chain_plain(xs, params)
-    if any(kind == "dw3" for kind, *_ in specs):
-        raise NotImplementedError(
-            "conv_chain: the depthwise 3x3 (dw3) layer has no CUDA kernel yet "
-            "(ROADMAP.md, Queue 2: conv-chain dw3)"
-        )
     h = _concat(xs).contiguous()
-    for (w, bias, act), (_kind, cin, cout, _act) in zip(params, specs):
+    for (w, bias, act), (kind, cin, cout, _act) in zip(params, specs):
         out = torch.empty((*h.shape[:3], cout), dtype=h.dtype, device=h.device)
-        conv_layer_launch(h, cin, w.to(h.dtype).float().contiguous(),
-                          bias.float().contiguous(), out, 0, act == "relu")
-        dispatch.launches["conv_chain"] += 1
+        wk, bk = w.to(h.dtype).float().contiguous(), bias.float().contiguous()
+        if kind == "dw3":
+            dwconv3_launch(h, wk, bk, out, act == "relu")
+            dispatch.launches["conv_chain_dw3"] += 1
+        else:
+            conv_layer_launch(h, cin, wk, bk, out, 0, act == "relu")
+            dispatch.launches["conv_chain"] += 1
         h = out
     return h

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-KERNELS = ("d2s_packed", "correlation", "conv_chain", "rdb", "conv_chain_int8", "rdb_int8")
+KERNELS = ("d2s_packed", "correlation", "conv_chain", "conv_chain_dw3", "rdb",
+           "conv_chain_int8", "rdb_int8", "planar_chain")
 launches = dict.fromkeys(KERNELS, 0)
 
 

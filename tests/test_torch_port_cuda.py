@@ -9,7 +9,8 @@ repository's conftest::
 Shapes are small and ragged (not multiples of the kernels' tiles). Limits,
 relative to max|plain|: d2s bit-exact; float32 1e-4 (correlation 1e-5),
 TF32 off; bfloat16 at the JAX package's kernel-gate levels (correlation
-1e-2, conv chain 2.4e-2, RDB 1.56e-2), since rounding to bfloat16 at
+1e-2, conv chain 2.4e-2, also for its depthwise layers and the planar
+chain, RDB 1.56e-2), since rounding to bfloat16 at
 different sums can flip an intermediate by one unit in the last place.
 The int8 kernels are held at the JAX package's kernel-vs-mirror levels: a
 conv chain within 2 x its largest activation scale, an RDB block with
@@ -23,7 +24,15 @@ import pytest
 import torch
 
 from nerve_tpu_torch import ops
-from nerve_tpu_torch.ops import conv_chain, conv_chain_int8, correlation, dispatch, rdb, rdb_int8
+from nerve_tpu_torch.ops import (
+    conv_chain,
+    conv_chain_int8,
+    correlation,
+    dispatch,
+    planar_chain,
+    rdb,
+    rdb_int8,
+)
 
 d2s = importlib.import_module("nerve_tpu_torch.ops.pixel_shuffle")
 
@@ -106,12 +115,50 @@ def test_conv_chain(cuda, dtype):
            conv_chain.conv_chain_plain(xs, params), dtype)
 
 
+def _dw_params(g, c, act, dev):
+    return (_rand(g, 3, 3, c, std=1 / 3).to(dev), _rand(g, c, std=0.1).to(dev), act)
+
+
 @pytest.mark.cuda
-def test_conv_chain_dw3_raises(cuda):
-    x = torch.zeros(1, 4, 4, 8, device=cuda)
-    dw = (torch.zeros(3, 3, 8, device=cuda), torch.zeros(8, device=cuda), "none")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.conv_chain_apply(x, [dw])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [32, 64, 12])
+def test_conv_chain_dw3(cuda, dtype, c):
+    """Depthwise layers (ragged C=12 takes element loads) between dense ones."""
+    g = torch.Generator().manual_seed(6)
+    x = _rand(g, 2, 13, 37, c).to(cuda, dtype)
+    params = [_dw_params(g, c, "relu", cuda), *_conv_params(g, [c, c], [1], cuda),
+              _dw_params(g, c, "none", cuda)]
+    n0 = dict(dispatch.launches)
+    got = ops.conv_chain_apply(x, params)
+    assert dispatch.launches["conv_chain_dw3"] == n0["conv_chain_dw3"] + 2
+    assert dispatch.launches["conv_chain"] == n0["conv_chain"] + 1
+    _check("conv_chain", got, conv_chain.conv_chain_plain(x, params), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chain", ["lightweight", "wide"])
+def test_planar_chain(cuda, dtype, chain):
+    """The lightweight body (3 -> 32, 4 x (dw3, 1x1), 32 -> 12) and a chain
+    with a 64-wide layer, ragged widths and a depthwise last layer, in one
+    launch each, on a frame that is not a multiple of the tile."""
+    g = torch.Generator().manual_seed(7)
+    if chain == "lightweight":
+        params = _conv_params(g, [3, 32], [3], cuda)
+        for _ in range(4):
+            params += [_dw_params(g, 32, "none", cuda), *_conv_params(g, [32, 32], [1], cuda)]
+            params[-1] = (*params[-1][:2], "relu")
+        params += _conv_params(g, [32, 12], [3], cuda)
+        x = torch.rand((2, 3, 21, 45), generator=g)
+    else:
+        params = _conv_params(g, [5, 64, 20], [3, 1], cuda) + [_dw_params(g, 20, "none", cuda)]
+        x = _rand(g, 1, 5, 19, 70)
+    x = x.to(cuda, dtype)
+    n0 = dict(dispatch.launches)
+    got = ops.planar_chain_apply(x, params)
+    assert dispatch.launches["planar_chain"] == n0["planar_chain"] + 1
+    assert dispatch.launches["conv_chain"] == n0["conv_chain"]
+    _check("conv_chain", got, planar_chain.planar_chain_plain(x, params), dtype)
 
 
 @pytest.mark.cuda

@@ -4,12 +4,16 @@ Every op's plain PyTorch version (what a CPU tensor runs) is held against
 the JAX package's XLA formulation in float32, at 1e-5 of max|ref| unless
 stated: the two differ only in summation order. One test runs the Pallas
 correlation kernel in interpret mode, one the Pallas depth-to-space kernel
-in interpret mode. The CUDA kernels themselves are held against these
+in interpret mode. The bfloat16 correlation is held bit-exact against the
+XLA formulation and both Pallas kernels in interpret mode, compiled with
+``xla_allow_excess_precision`` off so that XLA rounds each product to
+bfloat16 as their source says (by default it may keep them in float32). The CUDA kernels themselves are held against these
 plain versions on the GPU (``tests/test_torch_port_cuda.py``).
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -87,6 +91,25 @@ class TestCorrelation:
             ref = jcorr._correlation_pallas_planar(
                 jnp.asarray(f1, jnp.float32), jnp.asarray(f2, jnp.float32), 2, th=8, tw=16)
         _close(correlation.correlation_plain(_t(f1), _t(f2), 2), ref)
+
+
+    @pytest.mark.parametrize("kernel", ["xla", "pallas_planar", "pallas_nhwc"])
+    def test_bf16_bit_exact(self, kernel):
+        from jax.experimental.pallas import tpu as pltpu
+
+        rng = np.random.default_rng(12)
+        # C a power of two: the XLA formulation divides the rounded sum by C.
+        f1, f2 = (jnp.asarray(rng.standard_normal((1, 10, 20, 16)) * 0.5, jnp.bfloat16)
+                  for _ in range(2))
+        fn = {"xla": lambda a, b: jcorr._correlation_xla(a, b, 2),
+              "pallas_planar": lambda a, b: jcorr._correlation_pallas_planar(a, b, 2, 8, 16),
+              "pallas_nhwc": lambda a, b: jcorr._correlation_pallas(a, b, 2, 8, 16)}[kernel]
+        with pltpu.force_tpu_interpret_mode():
+            ref = jax.jit(fn, compiler_options={"xla_allow_excess_precision": False})(f1, f2)
+        got = ops.correlation_volume(*(_t(np.array(f, np.float32)).bfloat16() for f in (f1, f2)),
+                                     2, planar=None if kernel == "xla" else kernel == "pallas_planar")
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))
 
 
 class TestConvChain:
