@@ -5,8 +5,9 @@
 
 Phases, each of which raises on failure and prints its wall time:
 
-1. Device: the card's name and power limit (``nvidia-smi``); TF32 off.
-2. Build: ``nvcc`` compiles ``nerve_tpu_torch/csrc`` for ``sm_90a``.
+1. Build: ``nvcc`` compiles ``nerve_tpu_torch/csrc`` for ``sm_90a``.
+2. Device: the probe of ``diag.probe`` (a matrix product and the probe
+   kernel), then the card's name and power limit (``nvidia-smi``); TF32 off.
 3. Kernels: each of the eight CUDA kernels against its plain PyTorch version
    on the card, at a small ragged shape and at the serving shapes of the
    flagship path (1080p → 2160p) and, for the depthwise layer and the planar
@@ -27,7 +28,20 @@ Phases, each of which raises on failure and prints its wall time:
    ``conv_chain_int8``, ``correlation`` and ``d2s_packed`` must launch and
    ``rdb`` and ``conv_chain`` must not; the output must agree with the int8
    plain versions' and lie within ``INT8_MIN_PSNR`` dB of the bf16 slice's.
-6. Lightweight slice: an untrained ``LightweightSuperResolution`` (zero
+6. Diagnostic paths: (a) the kernels of the diagnostic entry points
+   (``nerve_tpu_torch.diag``) against their plain versions: the int8 RDB's
+   per-channel ``int32_taps`` and dx-major schemes (bit-exact), the RDB
+   under each TPU rounding contract and its ablations (``ops.rdb_taps``;
+   in bfloat16 a contract's mean|Δ| against its own plain version must be
+   at most ¼ of that against any other contract's), the planar d2s and the
+   probe kernel, at a small ragged shape in float32 and bfloat16 and at the
+   serving shapes (the contracts ``pallas_dx`` and ``s2d``);
+   (b) the int8 slice once more with ``rdb_int8.PER_CHANNEL_INT8 = True``:
+   ``rdb_int8_int32_taps`` must launch, the output must agree with its
+   plain run at the int8 limits and lie within ``INT8_MIN_PSNR`` dB of the
+   bf16 slice's; (c) the RDB cost-attribution table of ``diag.rdb`` (one
+   block at 1080p × 64) and the d2s candidates of ``diag.d2s``.
+7. Lightweight slice: an untrained ``LightweightSuperResolution`` (zero
    tail) must return the clipped bicubic upscale within 2⁻⁸; then the model
    with every parameter and BN statistic seeded, in bfloat16, runs frame by
    frame over the same video with ``"packed"`` output. ``conv_chain``,
@@ -38,7 +52,8 @@ Phases, each of which raises on failure and prints its wall time:
    frame: ``planar_chain`` must launch once per frame and nothing else, and
    its result must agree with the per-layer body's.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The probe (``diag.probe``) runs first in the device phase. The line before
+the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result. It imports no JAX.
 """
@@ -61,6 +76,10 @@ import torch
 import torch.nn.functional as F
 
 from nerve_tpu_torch import ops
+from nerve_tpu_torch.diag import _common
+from nerve_tpu_torch.diag import d2s as diag_d2s
+from nerve_tpu_torch.diag import probe
+from nerve_tpu_torch.diag import rdb as diag_rdb
 from nerve_tpu_torch.models import (
     LightweightSuperResolution,
     SuperResolutionNet,
@@ -77,6 +96,7 @@ from nerve_tpu_torch.ops import (
     planar_chain,
     rdb,
     rdb_int8,
+    rdb_taps,
 )
 
 d2s = importlib.import_module("nerve_tpu_torch.ops.pixel_shuffle")
@@ -126,6 +146,15 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, plain version)
                         "nerve_tpu/ops/conv_chain_int8.py:135", conv_chain_int8_plain_op),
     "rdb_int8": ("nerve_tpu_torch/csrc/rdb_int8.cu", "nerve_tpu/ops/rdb_int8.py:245",
                  rdb_int8.rdb_chain_int8_plain),
+    # The diagnostic paths' kernels (phase 6).
+    "rdb_int8_int32_taps": ("nerve_tpu_torch/csrc/conv_int8.cu",
+                            "nerve_tpu/ops/rdb_int8.py:245", rdb_int8.rdb_chain_int8_plain),
+    "rdb_taps": ("nerve_tpu_torch/csrc/rdb_taps.cu", "scripts/diag_rdb.py:406",
+                 rdb_taps.rdb_taps_plain),
+    "d2s_packed_planar": ("nerve_tpu_torch/csrc/d2s_packed.cu", "scripts/diag_d2s.py:140",
+                          d2s.depth_to_space_packed_planar_plain),
+    "probe": ("nerve_tpu_torch/csrc/probe.cu", "scripts/tpu_probe.py:37",
+              probe.probe_scale2_plain),
 }
 # bf16 kernels: limits (float32, bfloat16) relative to max|plain|.
 BF16_LIMITS = {"d2s_packed": (0.0, 0.0), "correlation": (1e-5, 1e-2),
@@ -162,16 +191,7 @@ def phase(name: str):
 
 def median_ms(fn, reps: int = 5) -> float:
     """Median over ``reps`` runs of ``fn`` on the card (CUDA events), after a warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return _common.median_ms(fn, torch.device("cuda"), reps)
 
 
 def _randn(g, shape, std=1.0):
@@ -186,15 +206,6 @@ def conv_params(g, widths, dev, acts=None, kinds=None):
         out.append((_randn(g, (k, k, cin, cout), (k * k * cin) ** -0.5).to(dev),
                     _randn(g, (cout,), 0.1).to(dev), act))
     return out
-
-
-def rdb_params(g, c, dev, dt):
-    params, cin = [], c
-    for _ in range(5):
-        params += [_randn(g, (3, 3, cin, 32), (9 * cin) ** -0.5), _randn(g, (32,), 0.1)]
-        cin += 32
-    params += [_randn(g, (cin, c), cin ** -0.5), _randn(g, (c,), 0.1)]
-    return [p.to(dev, dt) for p in params]
 
 
 # --------------------------------------------------------------------------- #
@@ -282,14 +293,14 @@ def bf16_kernel_cases(dev, dt, serving: bool):
         f1, f2 = act(2, H // 2, W // 2, FEATURES), act(2, H // 2, W // 2, FEATURES)
         sites = serving_inputs(g, dev, dt)
         xr = act(1, H, W, FEATURES)
-        plist = [rdb_params(g, FEATURES, dev, dt) for _ in range(BLOCKS)]
+        plist = [_common.rdb_params(g, FEATURES, dev, dt) for _ in range(BLOCKS)]
         label = f"serving 1080p ({BLOCKS} RDBs, 5 chain sites)"
     else:
         x = act(2, 13, 37, 12)
         f1, f2 = act(2, 11, 35, 16), act(2, 11, 35, 16)
         sites = [([act(2, 9, 35, 4) for _ in range(3)], conv_params(g, [12, 40, 20, 3, 12], dev))]
         xr = act(1, 10, 33, 16)
-        plist = [rdb_params(g, 16, dev, dt) for _ in range(2)]
+        plist = [_common.rdb_params(g, 16, dev, dt) for _ in range(2)]
         label = "small ragged"
 
     # The seeded lightweight body: its four depthwise layers, each on a
@@ -351,14 +362,14 @@ def int8_kernel_cases(dev, dt, serving: bool):
     if serving:
         sites = serving_inputs(g, dev, dt)
         xr = _randn(g, (1, H, W, FEATURES), 0.5).to(dev, dt)
-        plist = [rdb_params(g, FEATURES, dev, torch.float32) for _ in range(BLOCKS)]
+        plist = [_common.rdb_params(g, FEATURES, dev, torch.float32) for _ in range(BLOCKS)]
         label = f"serving 1080p ({BLOCKS} RDBs, 5 chain sites)"
     else:
         sites = [([_randn(g, (2, 9, 35, 4)).to(dev, dt) for _ in range(3)],
                   conv_params(g, [12, 40, 20, 3, 12], dev, kinds=[3, 1, 3, 3])),
                  (_randn(g, (1, 13, 37, 3)).to(dev, dt), conv_params(g, [3, 24], dev, ["relu"]))]
         xr = _randn(g, (1, 10, 33, 16), 0.5).to(dev, dt)
-        plist = [rdb_params(g, 16, dev, torch.float32) for _ in range(2)]
+        plist = [_common.rdb_params(g, 16, dev, torch.float32) for _ in range(2)]
         label = "small ragged"
     qsites, chain_limit, chain_bytes = [], 0.0, 0
     for xx, p in sites:
@@ -410,7 +421,7 @@ def compare(name, label, dt, kern, plain, limit, rel_scale=None):
         err == 0.0 if limit == 0.0 else err <= limit)
     del got, ref
     ms, pms = median_ms(kern), median_ms(plain)
-    print(f"kernel {name:18s} {label:38s} {str(dt):15s} max|err| {err:.3e} (limit {limit:.3e}) "
+    print(f"kernel {name:24s} {label:38s} {str(dt):15s} max|err| {err:.3e} (limit {limit:.3e}) "
           f"differ {ndiff} kernel {ms:.3f} ms plain {pms:.3f} ms {'ok' if ok else 'FAIL'}",
           flush=True)
     if not ok:
@@ -446,6 +457,100 @@ def check_kernels(dev) -> dict:
         print(f"bound {name:16s} {s['bound_ms']:.3f} ms ({s['bound_by']}), kernel "
               f"{s['ms']:.3f} ms: {s['bound_ms'] / s['ms']:.3f} of the bound; library {lib}",
               flush=True)
+    return summary
+
+
+def diag_kernel_cases(dev, dt, serving: bool):
+    """name -> (label, kernel call, plain call, limit, relative, library call,
+    work, margin) of the diagnostic paths' kernels. ``limit`` is relative to
+    max|plain| where ``relative``, else absolute; ``margin``, for the bf16
+    RDB contracts, returns ``rdb_taps.contract_margin`` of the kernel's
+    output."""
+    g = torch.Generator().manual_seed(9)
+    if serving:
+        xr = _randn(g, (1, H, W, FEATURES), 0.5).to(dev, dt)
+        plist = [_common.rdb_params(g, FEATURES, dev, torch.float32) for _ in range(BLOCKS)]
+        xb = _randn(g, (1, H, W, FEATURES)).to(dev, dt)
+        block = _common.rdb_params(g, FEATURES, dev, dt)
+        xp = torch.rand((1, 12, H, W), generator=g).to(dev, dt)
+        modes = ("pallas_dx", "s2d")
+        label = f"serving 1080p ({BLOCKS} int8 RDBs, 1 RDB)"
+    else:
+        xr = _randn(g, (1, 10, 33, 16), 0.5).to(dev, dt)
+        plist = [_common.rdb_params(g, 16, dev, torch.float32) for _ in range(2)]
+        xb = _randn(g, (2, 13, 37, 12)).to(dev, dt)
+        block = _common.rdb_params(g, 12, dev, dt)
+        xp = torch.rand((2, 12, 13, 37), generator=g).to(dev, dt)
+        modes = (*rdb_taps.CONTRACTS, "noshift", "nolff")
+        label = "small ragged"
+    rscales = rdb_int8.calibrate_rdb_chain(xr, plist)
+    qpc = rdb_int8.quantize_rdb_chain(plist, rscales, per_channel=True)
+    qcol = rdb_int8.quantize_rdb_chain(plist, rscales)
+    rdb_bytes = 2 * nbytes(xr) + nbytes(*(t for wq, dq, meta in qpc for t in (*wq, dq, meta)))
+    int8_work = bound(rdb_ops(plist, pixels(xr)), rdb_bytes, "int8")
+    cases = {}
+    # Both schedules are bit-exact: the same int32 sums, the same float32
+    # operations in the same order.
+    for name, q, it, dx in (("rdb_int8_int32_taps", qpc, True, False),
+                            ("rdb_int8 per_column_dx", qcol, False, True)):
+        cases[name] = (label, lambda q=q, it=it, dx=dx: ops.rdb_chain_int8_apply(xr, q, None, it, dx),
+                       lambda q=q, it=it, dx=dx: rdb_int8.rdb_chain_int8_plain(xr, q, None, it, dx),
+                       0.0, False, None, int8_work, None)
+    taps_work = bound(rdb_ops([block], pixels(xb)), 2 * nbytes(xb) + nbytes(*block), "bf16")
+    lim = BF16_LIMITS["rdb"][dt == torch.bfloat16]
+    for mode in modes:
+        name = "rdb_taps" if mode == "pallas_dx" else f"rdb_taps {mode}"
+        margin = (lambda m=mode: rdb_taps.contract_margin(ops.rdb_taps_apply(xb, block, m),
+                                                          xb, block, m)
+                  ) if dt == torch.bfloat16 and mode in rdb_taps.CONTRACTS else None
+        cases[name] = (label, lambda m=mode: ops.rdb_taps_apply(xb, block, m),
+                       lambda m=mode: rdb_taps.rdb_taps_plain(xb, block, m), lim, True, None,
+                       taps_work, margin)
+    cases["d2s_packed_planar"] = (
+        label, lambda: ops.depth_to_space_packed_planar(xp, 2),
+        lambda: d2s.depth_to_space_packed_planar_plain(xp, 2), 0.0, False,
+        lambda: diag_d2s.library_planar(xp), bound(0, 2 * nbytes(xp), "bf16"), None)
+    if dt == torch.float32:
+        a = torch.rand((8, 128), generator=g).to(dev)
+        cases["probe"] = ("(8, 128)", lambda: probe.probe_scale2(a),
+                          lambda: probe.probe_scale2_plain(a), 0.0, False, lambda: a * 2.0,
+                          bound(0, 2 * nbytes(a), "bf16"), None)
+    return cases
+
+
+def check_diag_kernels(dev) -> dict:
+    """Phase 6a: the diagnostic paths' kernels against their plain versions;
+    the serving-shape numbers of the four entries of the kernels line."""
+    summary = {}
+    for serving in (False, True):
+        for dt in (torch.bfloat16,) if serving else (torch.float32, torch.bfloat16):
+            for name, (label, kern, plain, lim, rel, lib, work, margin) in diag_kernel_cases(
+                    dev, dt, serving).items():
+                err, _n, ms, pms = compare(name, label, dt, kern, plain, lim,
+                                           0.0 if rel else None)
+                if margin is not None:
+                    mine, least_other = margin()
+                    ok = mine <= 0.25 * least_other
+                    print(f"contract {name:24s} {label:38s} mean|d| vs its plain {mine:.3e}, "
+                          f"vs the nearest other contract {least_other:.3e} "
+                          f"{'ok' if ok else 'FAIL'}", flush=True)
+                    if not ok:
+                        raise AssertionError(f"{name} is nearer another contract's plain "
+                                             f"version than a quarter of its own ({label})")
+                    torch.cuda.empty_cache()
+                if name in KERNELS and (serving or name == "probe"):
+                    summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+                                     "bound_ms": work[0], "bound_by": work[1],
+                                     "library_ms": median_ms(lib) if lib else None}
+    # matonly computes no layer, so it has no plain version: it must launch.
+    g = torch.Generator().manual_seed(10)
+    block = _common.rdb_params(g, 16, dev, torch.bfloat16)
+    n0 = dispatch.launches["rdb_taps"]
+    ops.rdb_taps_apply(_randn(g, (1, 10, 33, 16)).to(dev, torch.bfloat16), block, "matonly")
+    torch.cuda.synchronize()
+    if dispatch.launches["rdb_taps"] != n0 + 1:
+        raise AssertionError("rdb_taps matonly did not launch")
+    print("kernel rdb_taps matonly launched (no plain version: timing only)", flush=True)
     return summary
 
 
@@ -574,27 +679,33 @@ def psnr(a, b) -> float:
     return float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
 
 
-def run_int8_slice(model, video, bf16_outs, bf16_ms, card: str):
+def run_int8_slice(model, video, bf16_outs, beside, card: str):
+    """Calibrate and stream the int8 model; ``beside`` is (name, ms per frame)
+    of the slice its time is printed beside. Returns (launches, ms per frame)."""
     calib = torch.stack(video[:3], dim=1)[:, :, :270, :480]
     t0 = time.perf_counter()
     quantize_sr(model, calib, device=calib.device)
     torch.cuda.synchronize()
     print(f"int8 calibration on {tuple(calib.shape)}: {time.perf_counter() - t0:.1f} s",
           flush=True)
-    outs, times, launches, peak = drive(model, video, ("d2s_packed", "correlation",
-                                                       "conv_chain_int8", "rdb_int8"),
-                                        ("conv_chain", "rdb"))
+    scheme = "per-channel int32_taps" if rdb_int8.PER_CHANNEL_INT8 else "per-column"
+    int32 = ("rdb_int8_int32_taps",)
+    outs, times, launches, peak = drive(
+        model, video, ("d2s_packed", "correlation", "conv_chain_int8", "rdb_int8")
+        + (int32 if rdb_int8.PER_CHANNEL_INT8 else ()),
+        ("conv_chain", "rdb") + (() if rdb_int8.PER_CHANNEL_INT8 else int32))
     ptimes = against_plain(model, video, outs, INT8_MAX_ABS, INT8_MEAN_ABS)
     db = min(psnr(a, b) for a, b in zip(outs, bf16_outs))
-    print(f"int8 slice vs bf16 slice: PSNR {db:.2f} dB (least over {len(outs)} frames; "
-          f"limit {INT8_MIN_PSNR})", flush=True)
+    print(f"int8 {scheme} slice vs bf16 slice: PSNR {db:.2f} dB (least over {len(outs)} "
+          f"frames; limit {INT8_MIN_PSNR})", flush=True)
     if db < INT8_MIN_PSNR:
         raise AssertionError(f"int8 output only {db:.2f} dB from the bf16 output")
-    print(f"slice 1080p->2160p int8 packed: {statistics.median(times):.1f} ms/frame with "
-          f"kernels, {statistics.median(ptimes):.1f} ms/frame plain; bf16 slice "
-          f"{bf16_ms:.1f} ms/frame (median of {len(times)} steps; peak {peak:.2f} GiB) "
+    ms = statistics.median(times)
+    print(f"slice 1080p->2160p int8 {scheme} packed: {ms:.1f} ms/frame with "
+          f"kernels, {statistics.median(ptimes):.1f} ms/frame plain; {beside[0]} slice "
+          f"{beside[1]:.1f} ms/frame (median of {len(times)} steps; peak {peak:.2f} GiB) "
           f"on {card}", flush=True)
-    return launches
+    return launches, ms
 
 
 def check_untrained_lightweight(dev, frame) -> float:
@@ -633,7 +744,7 @@ def run_body(model, video, planar: bool):
 
 
 def run_lightweight_slice(dev, video, card: str):
-    """The lightweight slice (phase 6); returns the launch counts of its
+    """The lightweight slice (phase 7); returns the launch counts of its
     per-layer run and of its planar-chain run."""
     check_untrained_lightweight(dev, video[0])
     model = seeded_lightweight(dev, seed=0)
@@ -665,6 +776,40 @@ def run_lightweight_slice(dev, video, card: str):
     if not dmax <= PLANAR_BODY_REL * scale:
         raise AssertionError("the planar chain's body disagrees with the per-layer body")
     return model, launches, planar_launches
+
+
+def run_per_channel_int8_slice(dev, video, bf16_outs, int8_ms, card: str):
+    """Phase 6b: the int8 slice with per-channel scales and int32 taps."""
+    saved = rdb_int8.PER_CHANNEL_INT8
+    rdb_int8.PER_CHANNEL_INT8 = True
+    try:
+        model = seeded_model(dev, seed=0, quantized=True, quantized_chains=True)
+        launches, _ms = run_int8_slice(model, video, bf16_outs,
+                                       ("int8 per-column", int8_ms), card)
+    finally:
+        rdb_int8.PER_CHANNEL_INT8 = saved
+    return launches
+
+
+def run_diag_paths(dev):
+    """Phase 6c: the diagnostic entry points' own timed paths, each with
+    the counts set to 0 just before and read just after."""
+    dispatch.reset_launches()
+    g = torch.Generator().manual_seed(11)
+    block = _common.rdb_params(g, FEATURES, dev, torch.bfloat16)
+    x = _randn(g, (1, H, W, FEATURES)).to(dev, torch.bfloat16)
+    diag_rdb.report(diag_rdb.attribution(x, block, reps=5, check=False),
+                    f"one block, {H}x{W}x{FEATURES} bf16")
+    rdb_launches = dict(dispatch.launches)
+    print(f"diag rdb launches {rdb_launches}", flush=True)
+    dispatch.reset_launches()
+    diag_d2s.main([])
+    d2s_launches = dict(dispatch.launches)
+    print(f"diag d2s launches {d2s_launches}", flush=True)
+    for name, launches in (("rdb_taps", rdb_launches), ("d2s_packed_planar", d2s_launches)):
+        if launches[name] == 0:
+            raise AssertionError(f"the diagnostic path launched no {name} kernel")
+    return rdb_launches, d2s_launches
 
 
 # --------------------------------------------------------------------------- #
@@ -732,14 +877,6 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}", flush=True)
-
     with phase("build"):
         lib = _build.build()
         _build.library()
@@ -747,6 +884,17 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or re.search(r"\b[1-9]\d* bytes spill", line):
                 print(f"  {line.strip()}")
+    with phase("device"):
+        dispatch.reset_launches()
+        probe.main([])
+        launches_probe = dict(dispatch.launches)
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+        print(card, flush=True)
+        print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+              f"device {torch.cuda.get_device_name(0)}", flush=True)
     with phase("kernels"):
         summary = check_kernels(dev)
     g = torch.Generator().manual_seed(1)
@@ -756,7 +904,12 @@ def main() -> int:
         bf16_outs, launches, bf16_ms = run_slice(bf16_model, video, card)
     with phase("int8 slice"):
         int8_model = seeded_model(dev, seed=0, quantized=True, quantized_chains=True)
-        launches8 = run_int8_slice(int8_model, video, bf16_outs, bf16_ms, card)
+        launches8, int8_ms = run_int8_slice(int8_model, video, bf16_outs, ("bf16", bf16_ms),
+                                            card)
+    with phase("diagnostic paths"):
+        summary.update(check_diag_kernels(dev))
+        launches8pc = run_per_channel_int8_slice(dev, video, bf16_outs, int8_ms, card)
+        launches_rdb, launches_d2s = run_diag_paths(dev)
     del bf16_outs
     with phase("lightweight slice"):
         light_model, launches_lw, launches_planar = run_lightweight_slice(dev, video, card)
@@ -767,7 +920,9 @@ def main() -> int:
                     video, Path(args.profile))
     # Each kernel's launches from the run of the path that carries it.
     runs = {"conv_chain_int8": launches8, "rdb_int8": launches8,
-            "conv_chain_dw3": launches_lw, "planar_chain": launches_planar}
+            "conv_chain_dw3": launches_lw, "planar_chain": launches_planar,
+            "rdb_int8_int32_taps": launches8pc, "rdb_taps": launches_rdb,
+            "d2s_packed_planar": launches_d2s, "probe": launches_probe}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": runs.get(name, launches)[name], **summary[name]}
                for name, (src, rep, _plain) in KERNELS.items()]

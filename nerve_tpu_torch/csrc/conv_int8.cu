@@ -16,7 +16,16 @@
 // either requantisation to int8 (multiplication by the stored reciprocal,
 // rounded half to even, clipped to +-127) or the real value. Every float
 // operation of the epilogue is an explicit round-to-nearest intrinsic, so
-// the compiler contracts none of them into an FMA.
+// the compiler contracts none of them into an FMA. Two more tap schedules
+// serve the int8 RDB's other schemes (`_rdb_int8_kernel`, rdb_int8.py:324-371):
+//   * NT_TAPS_DX: the same per-tap epilogue with dx as the outer loop
+//     (`DX_MAJOR_INT8`);
+//   * NT_TAPS_INT32: per-channel scales (`PER_CHANNEL_INT8`, `int32_taps`):
+//     the nine taps' int32 sums add in int32 (|sum| <= 127^2 * 9 * K, below
+//     2^31 for any K the shared memory holds) and the layer dequantises
+//     once, f32(int32) * dq[n], before the bias. The tensor cores' int32
+//     accumulator then runs over every tap and channel, and the epilogue
+//     is one multiply instead of nine multiply-round-adds.
 //
 // Bound: neither side by much. A dense layer does 18 * cin * cout int8
 // operations per pixel for cin + cout bytes of int8 in and out: 384 to 494
@@ -50,7 +59,9 @@ constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
 __host__ __device__ constexpr int ceil_to(int v, int m) { return (v + m - 1) / m * m; }
 
 // Shared-memory layout: the haloed input tile [IH*IW][ks], one tap's
-// weights [CO][ks], the dequant factors [taps][CO]. ks = ceil32(cin) + 16.
+// weights [CO][ks], the dequant factors [taps][CO] (one row for
+// NT_TAPS_INT32). ks = ceil32(cin) + 16. The tap schedule is a template
+// parameter, so each schedule compiles to its own straight-line code.
 template <int K, int CO>
 __host__ __device__ constexpr int smem_bytes_for(int cin) {
   return ((TH + K - 1) * (TW + K - 1) + CO) * (ceil_to(cin, 32) + 16) + K * K * CO * 4;
@@ -66,7 +77,7 @@ __device__ __forceinline__ uint4 mask_tail(uint4 v, int keep) {
   return *reinterpret_cast<uint4*>(b);
 }
 
-template <int K, int CO>
+template <int K, int CO, int MODE>
 __global__ void __launch_bounds__(NTHREADS)
     conv_i8_kernel(const int8_t* __restrict__ x, int xcs, int cin,
                    const int8_t* __restrict__ w, const float* __restrict__ dq,
@@ -74,6 +85,7 @@ __global__ void __launch_bounds__(NTHREADS)
                    void* __restrict__ out, int ocs, int ocoff, int cout, int h,
                    int wd, int relu, int odt) {
   constexpr int R = K / 2, IH = TH + 2 * R, IW = TW + 2 * R, NT = CO / 8, TAPS = K * K;
+  constexpr bool int32_taps = MODE == NT_TAPS_INT32;
   static_assert(NT % 2 == 0, "CO must be a multiple of 16");
   extern __shared__ __align__(16) unsigned char smem[];
   const int kc = ceil_to(cin, 32), ks = kc + 16, wks = ceil_to(cin, 16);
@@ -100,7 +112,7 @@ __global__ void __launch_bounds__(NTHREADS)
     }
     *reinterpret_cast<uint4*>(sx + pix * ks + gc) = val;
   }
-  for (int i = tid; i < TAPS * CO; i += NTHREADS) {
+  for (int i = tid; i < (int32_taps ? 1 : TAPS) * CO; i += NTHREADS) {
     const int go = co0 + i % CO;
     sdq[i] = go < cout ? dq[(i / CO) * cout + go] : 0.f;
   }
@@ -113,7 +125,9 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[m][n][q] = 0.f;
 
-  for (int tap = 0; tap < TAPS; ++tap) {
+  int iacc[2][NT][4];
+  for (int t = 0; t < TAPS; ++t) {
+    const int tap = MODE == NT_TAPS_DX ? (t % K) * K + t / K : t;
     __syncthreads();  // the previous tap's weights are no longer read
     for (int i = tid; i < CO * nvx; i += NTHREADS) {
       const int v = i % nvx, n = i / nvx, go = co0 + n, gc = v * 16;
@@ -124,13 +138,14 @@ __global__ void __launch_bounds__(NTHREADS)
     }
     __syncthreads();
     const int ky = tap / K, kx = tap % K;
-    int iacc[2][NT][4];
+    if (!int32_taps || t == 0) {
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+      for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+        for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) iacc[m][n][q] = 0;
+          for (int q = 0; q < 4; ++q) iacc[m][n][q] = 0;
+    }
     for (int k0 = 0; k0 < kc; k0 += 32) {
       unsigned a[2][4];
 #pragma unroll
@@ -149,6 +164,7 @@ __global__ void __launch_bounds__(NTHREADS)
         }
       }
     }
+    if constexpr (int32_taps) continue;
     // This tap's dequantisation: f32(int32) * dq, rounded to bf16, added.
 #pragma unroll
     for (int m = 0; m < 2; ++m)
@@ -157,10 +173,21 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float d = sdq[tap * CO + n * 8 + (lane % 4) * 2 + q % 2];
-          const float t = __bfloat162float(
+          const float tv = __bfloat162float(
               __float2bfloat16_rn(__fmul_rn(__int2float_rn(iacc[m][n][q]), d)));
-          acc[m][n][q] = __fadd_rn(acc[m][n][q], t);
+          acc[m][n][q] = __fadd_rn(acc[m][n][q], tv);
         }
+  }
+  if constexpr (int32_taps) {
+    // The layer's one dequantisation: f32(int32 sum of nine taps) * dq[n].
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[m][n][q] = __fmul_rn(__int2float_rn(iacc[m][n][q]),
+                                   sdq[n * 8 + (lane % 4) * 2 + q % 2]);
   }
 
   const int gy = y0 + warp;
@@ -194,35 +221,35 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <int K, int CO>
+template <int K, int CO, int MODE>
 cudaError_t launch_cfg(const void* x, int xcs, int cin, const void* w, const float* dq,
                        const float* bias, const float* inv, void* out, int ocs,
                        int ocoff, int cout, int b, int h, int wd, int relu, int odt,
                        cudaStream_t stream) {
   const int smem = smem_bytes_for<K, CO>(cin);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(conv_i8_kernel<K, CO>,
+  cudaError_t err = cudaFuncSetAttribute(conv_i8_kernel<K, CO, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int nco = (cout + CO - 1) / CO;
   const dim3 grid((wd + TW - 1) / TW, (h + TH - 1) / TH, b * nco);
-  conv_i8_kernel<K, CO><<<grid, NTHREADS, smem, stream>>>(
+  conv_i8_kernel<K, CO, MODE><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const int8_t*>(x), xcs, cin, static_cast<const int8_t*>(w), dq, bias, inv,
       out, ocs, ocoff, cout, h, wd, relu, odt);
   return cudaGetLastError();
 }
 
-template <int K>
+template <int K, int MODE>
 cudaError_t launch_k(const void* x, int xcs, int cin, const void* w, const float* dq,
                      const float* bias, const float* inv, void* out, int ocs, int ocoff,
                      int cout, int b, int h, int wd, int relu, int odt, cudaStream_t st) {
   // The output-channel slice follows the layer's width: the RDB's growth-32
   // layers take one 32-wide slice, the 2- and 3-channel heads a 16-wide one.
   if (cout > 16)
-    return launch_cfg<K, 32>(x, xcs, cin, w, dq, bias, inv, out, ocs, ocoff, cout, b, h, wd,
-                             relu, odt, st);
-  return launch_cfg<K, 16>(x, xcs, cin, w, dq, bias, inv, out, ocs, ocoff, cout, b, h, wd,
-                           relu, odt, st);
+    return launch_cfg<K, 32, MODE>(x, xcs, cin, w, dq, bias, inv, out, ocs, ocoff, cout, b, h,
+                                   wd, relu, odt, st);
+  return launch_cfg<K, 16, MODE>(x, xcs, cin, w, dq, bias, inv, out, ocs, ocoff, cout, b, h,
+                                 wd, relu, odt, st);
 }
 
 }  // namespace
@@ -231,13 +258,19 @@ extern "C" int nt_conv2d_i8(const void* x, int x_cstride, int cin, const void* w
                             const float* dq, const float* bias, const float* inv,
                             void* out, int out_cstride, int out_coff, int cout, int b,
                             int h, int w_, int ksize, int relu, int out_dtype,
-                            void* stream) {
+                            int taps_mode, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // The 1x1 layers (the conv chains') take the per-column schedule only.
   if ((ksize != 1 && ksize != 3) || x_cstride % 16 != 0 ||
+      (taps_mode != NT_TAPS_DY && (ksize != 3 || (taps_mode != NT_TAPS_DX &&
+                                                  taps_mode != NT_TAPS_INT32))) ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
       (out_dtype != NT_I8 && out_dtype != NT_BF16 && out_dtype != NT_F32))
     return (int)cudaErrorInvalidValue;
-  return (int)(ksize == 3 ? launch_k<3> : launch_k<1>)(x, x_cstride, cin, w, dq, bias, inv,
-                                                      out, out_cstride, out_coff, cout, b, h,
-                                                      w_, relu, out_dtype, st);
+  auto launch = ksize == 1 ? launch_k<1, NT_TAPS_DY>
+                : taps_mode == NT_TAPS_DX ? launch_k<3, NT_TAPS_DX>
+                : taps_mode == NT_TAPS_INT32 ? launch_k<3, NT_TAPS_INT32>
+                : launch_k<3, NT_TAPS_DY>;
+  return (int)launch(x, x_cstride, cin, w, dq, bias, inv, out, out_cstride, out_coff, cout, b,
+                     h, w_, relu, out_dtype, st);
 }

@@ -16,10 +16,18 @@ extern "C" {
 #endif
 
 enum { NT_F32 = 0, NT_BF16 = 1, NT_I8 = 2 };
+// Tap schedules of the int8 dense layer (nt_conv2d_i8's `taps_mode`).
+enum { NT_TAPS_DY = 0, NT_TAPS_DX = 1, NT_TAPS_INT32 = 2 };
+// Flags of nt_rdb_taps_conv.
+enum { NT_TAPS_ACC_DTYPE = 1, NT_TAPS_NOSHIFT = 2, NT_TAPS_MATONLY = 4 };
 
 // Depth-to-space into packed rows: (B, H, W, C*s*s) -> (B, H*s, W*s*C).
 int nt_d2s_packed(const void* x, void* out, int b, int h, int w, int c, int s,
                   int dtype, void* stream);
+
+// The same from channel-planar phases: (B, C*s*s, H, W) -> (B, H*s, W*s*C).
+int nt_d2s_packed_planar(const void* x, void* out, int b, int h, int w, int c,
+                         int s, int dtype, void* stream);
 
 // Cost volume (B, H, W, C) x2 -> (B, H, W, (2d+1)^2), 1 <= d <= 4.
 int nt_correlation(const void* f1, const void* f2, void* out, int b, int h,
@@ -50,6 +58,26 @@ int nt_planar_chain(const void* x, void* out, const void* wpack,
                     const int* layers, int nl, int b, int h, int w_,
                     int dtype, void* stream);
 
+// One SAME 3x3 dense layer under a grouped-tap rounding contract. Reads
+// channels [0, cin) of x (channel stride x_cstride), writes channels
+// [out_coff, out_coff + cout) of out; w is HWIO (3, 3, cin, cout), bias
+// (cout), both at the activation dtype's values. `table` is a host array of
+// 20 ints: for output-row parity p (the row's index in the image mod 2),
+// table[9p .. 9p+8] the taps t = 3*dy + dx in walk order and table[18 + p]
+// a bit mask, bit i set where a group ends after the i-th tap. Each group's
+// products are summed in float32, plus bias if it holds tap 4, rounded to
+// the dtype and added in float32 (rounded to the dtype after each add with
+// NT_TAPS_ACC_DTYPE); then relu, rounded to the dtype. NT_TAPS_NOSHIFT
+// writes relu of tap 4's group alone; NT_TAPS_MATONLY computes the products
+// and writes one value per warp (timing only).
+int nt_rdb_taps_conv(const void* x, int x_cstride, int cin, const float* w,
+                     const float* bias, void* out, int out_cstride,
+                     int out_coff, int cout, int b, int h, int w_,
+                     const int* table, int flags, int dtype, void* stream);
+
+// o = 2 * a over n float32 values (the device-health probe).
+int nt_probe_scale2(const float* a, float* o, int n, void* stream);
+
 // RDB local feature fusion: out = (cat . w + bias) * res_scale + cat[..., :c]
 // with cat (B, H, W, ccat), w (ccat, c), out (B, H, W, c).
 int nt_rdb_lff(const void* cat, int ccat, const float* w, const float* bias,
@@ -59,9 +87,13 @@ int nt_rdb_lff(const void* cat, int ccat, const float* w, const float* bias,
 // One SAME 3x3 or 1x1 int8 conv layer (static post-training quantisation).
 // Reads int8 channels [0, cin) of x (channel stride x_cstride, a multiple of
 // 16; x 16-byte aligned). w is int8 (ksize*ksize, cout, ceil16(cin)), zero
-// beyond cin. For each tap t, in order (dy outer, dx inner), the int32 sum
-// over the input channels times dq[t*cout + n] is rounded to bfloat16 and
-// added in float32; then bias[n], relu if asked. out_dtype NT_I8 writes
+// beyond cin. taps_mode NT_TAPS_DY: for each tap t = 3*dy + dx, in order
+// (dy outer, dx inner), the int32 sum over the input channels times
+// dq[t*cout + n] is rounded to bfloat16 and added in float32; NT_TAPS_DX:
+// the same with dx outer; NT_TAPS_INT32: the taps' int32 sums are added in
+// int32 and the total times dq[n] (cout factors) is the float32 sum
+// (NT_TAPS_DX and NT_TAPS_INT32 take ksize 3 only). Then
+// bias[n], relu if asked. out_dtype NT_I8 writes
 // clip(rint(v * inv[n]), -127, 127) into int8 channels
 // [out_coff, out_coff + cout) of out (channel stride out_cstride); NT_BF16
 // and NT_F32 write v rounded to that type.
@@ -69,7 +101,7 @@ int nt_conv2d_i8(const void* x, int x_cstride, int cin, const void* w,
                  const float* dq, const float* bias, const float* inv,
                  void* out, int out_cstride, int out_coff, int cout, int b,
                  int h, int w_, int ksize, int relu, int out_dtype,
-                 void* stream);
+                 int taps_mode, void* stream);
 
 // int8 RDB local feature fusion and residual. cat is int8 (B, H, W, .) with
 // channel stride cat_cstride (a multiple of 16), of which channels

@@ -1,0 +1,78 @@
+"""Packed depth-to-space candidates at 1080p → 2160p:
+``python -m nerve_tpu_torch.diag.d2s [--device cpu] [--small]``.
+
+Counterpart of ``scripts/diag_d2s.py``: twelve bfloat16 phase channels
+(3 colours, scale 2) into (1, 2160, 11520) packed rows, from NHWC phases
+with ``ops.depth_to_space_packed`` (``nt_d2s_packed``, which covers the
+script's ``d2s_packed_mxu``) and from channel-planar phases with
+``ops.depth_to_space_packed_planar`` (``nt_d2s_packed_planar``, the
+script's ``d2s_packed_planar``), beside the library's
+``F.pixel_shuffle`` + permute for each layout. The kernels are held
+bit-exact against their plain versions first.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import torch
+import torch.nn.functional as F
+
+from nerve_tpu_torch import ops
+from nerve_tpu_torch.diag import _common
+
+# The module, not ``ops.pixel_shuffle`` the function of the same name.
+ps = importlib.import_module("nerve_tpu_torch.ops.pixel_shuffle")
+
+S = 2
+
+
+def library_nhwc(x):
+    b, h, w, c = x.shape
+    return F.pixel_shuffle(x.permute(0, 3, 1, 2), S).permute(0, 2, 3, 1).reshape(
+        b, S * h, S * w * (c // (S * S)))
+
+
+def library_planar(xp):
+    b, c, h, w = xp.shape
+    return F.pixel_shuffle(xp, S).permute(0, 2, 3, 1).reshape(b, S * h, S * w * (c // (S * S)))
+
+
+def cases(x: torch.Tensor) -> dict:
+    """name -> (call, its plain version) on NHWC ``x`` and its planar copy."""
+    xp = x.permute(0, 3, 1, 2).contiguous()
+    return {
+        "depth_to_space_packed (NHWC)": (lambda: ops.depth_to_space_packed(x, S),
+                                         lambda: ps.depth_to_space_packed_plain(x, S)),
+        "depth_to_space_packed_planar": (lambda: ops.depth_to_space_packed_planar(xp, S),
+                                         lambda: ps.depth_to_space_packed_planar_plain(xp, S)),
+        "library F.pixel_shuffle NHWC": (lambda: library_nhwc(x), None),
+        "library F.pixel_shuffle planar": (lambda: library_planar(xp), None),
+    }
+
+
+def main(argv=None) -> dict:
+    p = _common.parser(__doc__.splitlines()[0])
+    args = p.parse_args(argv)
+    dev = _common.device_of(args)
+    g = torch.Generator().manual_seed(0)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.rand((2, 13, 37, 12), generator=g).to(dev, dt)
+        ref = ps.depth_to_space_packed_plain(x, S)
+        for name, (fn, plain) in cases(x).items():
+            # A kernel against its plain version, a library call against the NHWC one.
+            if not torch.equal(fn(), plain() if plain else ref):
+                raise AssertionError(f"{name} ({dt}) is not bit-exact")
+    print("check d2s: both kernels bit-exact against their plain versions, the library "
+          "calls against the NHWC plain version (float32, bf16)", flush=True)
+    h, w = (16, 40) if args.small else (1080, 1920)
+    x = torch.rand((1, h, w, 12), generator=g).to(dev, torch.bfloat16)
+    times = {name: _common.median_ms(fn, dev, args.reps) for name, (fn, _p) in cases(x).items()}
+    for name, ms in times.items():
+        print(f"time {name:32s} {ms:8.3f} ms ({h}x{w}x12 -> {S * h}x{S * w * 3} bf16)",
+              flush=True)
+    return times
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,10 @@ model holds tuples and lists; their indices name the port's buffers
 ``rdbs.qchain.{b}.0.{i}``; see ``layers.QuantState``). Layouts are the same
 too (HWIO kernels, the RDB fusion as a 2-D matrix, the int8 wire format),
 so loading is a copy. It is strict: a missing, unused or misshapen entry
-raises, and int8 entries stay int8 and may fill only int8 buffers.
+raises, and int8 entries stay int8 and may fill only int8 buffers. A model
+quantised with ``PER_CHANNEL_INT8`` loads unchanged: its wire format is the
+same (the per-channel factors tiled over the taps), and serving it takes
+``ops.rdb_int8.PER_CHANNEL_INT8 = True`` in the port too.
 """
 
 from __future__ import annotations

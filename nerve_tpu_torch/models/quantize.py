@@ -92,7 +92,9 @@ def quantize_sr(model: SuperResolutionNet, frames: torch.Tensor,
     """Calibrate ``model``'s int8 state on ``frames`` (B, T, H, W, C), in place.
 
     The model moves to ``device`` (the card unless ``device="cpu"``) and to
-    eval mode first; it is returned ready to serve.
+    eval mode first; it is returned ready to serve. The RDB stack quantises
+    in the scheme ``ops.rdb_int8.PER_CHANNEL_INT8`` names at this call
+    (per-column by default) and must be served under the same setting.
     """
     if not (model.quantized or model.quantized_chains):
         raise ValueError("the model has no quantised site: build it with quantized=True "

@@ -183,7 +183,9 @@ class RDBStack(nn.Module):
     ``quantized`` serves the stack in int8 from the state ``qchain`` (the
     JAX wire format, ``ops.rdb_int8``; unit scales until calibrated). With
     ``quant_calibrate`` set, a forward computes the scales from its input,
-    quantises into ``qchain`` and returns the exact result.
+    quantises into ``qchain`` and returns the exact result. Quantising and
+    serving both follow ``rdb_int8.PER_CHANNEL_INT8`` as it stands at the
+    call, as the JAX stack does.
     """
 
     def __init__(self, num_features: int = 64, num_blocks: int = 8,
@@ -210,7 +212,8 @@ class RDBStack(nn.Module):
             self.register_parameter(f"rdb{b}_lff_bias", zeros_param((num_features,), device))
         if quantized:
             ones = torch.ones((num_blocks, 1 + num_layers), device=device)
-            self.qchain = QuantState(rdb_int8.quantize_rdb_chain(self._params_f32(), ones))
+            self.qchain = QuantState(rdb_int8.quantize_rdb_chain(
+                self._params_f32(), ones, per_channel=rdb_int8.PER_CHANNEL_INT8))
 
     def block_params(self, b: int) -> List[torch.Tensor]:
         """Block ``b``'s (w_0, b_0, …, lw, lb) in the compute dtype."""
@@ -232,7 +235,8 @@ class RDBStack(nn.Module):
         if self.quant_calibrate:
             params_f32 = self._params_f32()
             scales = rdb_int8.calibrate_rdb_chain(x.float(), params_f32)
-            self.qchain.assign(rdb_int8.quantize_rdb_chain(params_f32, scales))
+            self.qchain.assign(rdb_int8.quantize_rdb_chain(
+                params_f32, scales, per_channel=rdb_int8.PER_CHANNEL_INT8))
             return ops.rdb_chain_apply(x, params_list)
         return ops.rdb_chain_int8_apply(x, self.qchain.value(), out_dtype=x.dtype)
 

@@ -181,18 +181,29 @@ def tap_major(wi: torch.Tensor, taps: int, ncols: int, cout: int) -> torch.Tenso
     return F.pad(w, (0, _ceil_to(cin, 16) - cin)).contiguous()
 
 
+# Tap schedules of ``nt_conv2d_i8`` (csrc/nerve_tpu_torch.h): per-tap
+# dequantisation with dy or dx as the outer loop, or the nine taps summed in
+# int32 and dequantised once by per-channel factors.
+TAPS_DY, TAPS_DX, TAPS_INT32 = 0, 1, 2
+
+
 def conv_layer_launch_i8(x: torch.Tensor, cin: int, w: torch.Tensor, dq: torch.Tensor,
                          bias: torch.Tensor, inv: torch.Tensor, out: torch.Tensor,
-                         out_coff: int, relu: bool) -> None:
+                         out_coff: int, relu: bool, taps_mode: int = TAPS_DY) -> None:
     """Launch ``nt_conv2d_i8``: int8 channels [0, cin) of ``x`` → channels
     [out_coff, out_coff + cout) of ``out`` (int8 requantised by ``inv``, or
-    the real value in bfloat16/float32). ``w`` from :func:`tap_major`."""
+    the real value in bfloat16/float32). ``w`` from :func:`tap_major`; ``dq``
+    holds taps·cout per-column factors, or cout per-channel ones for
+    ``TAPS_INT32``; a 1×1 layer takes ``TAPS_DY`` only."""
     b, h, wd, xcs = x.shape
     taps, cout, wks = w.shape
     if taps not in (1, 9) or wks != _ceil_to(cin, 16) or cin > xcs or xcs % 16:
         raise ValueError(f"int8 conv layer: weights {tuple(w.shape)} do not fit cin={cin} "
                          f"of an input with {xcs} channels (a multiple of 16)")
-    if (tuple(dq.shape) != (taps * cout,) or tuple(bias.shape) != (cout,)
+    ndq = cout if taps_mode == TAPS_INT32 else taps * cout
+    if (taps_mode not in (TAPS_DY, TAPS_DX, TAPS_INT32) or (taps_mode != TAPS_DY and taps != 9)
+            or tuple(dq.shape) != (ndq,)
+            or tuple(bias.shape) != (cout,)
             or tuple(inv.shape) != (cout,) or out_coff + cout > out.shape[-1]
             or out.shape[:3] != x.shape[:3]):
         raise ValueError(f"int8 conv layer: dq {tuple(dq.shape)}, bias {tuple(bias.shape)}, "
@@ -207,7 +218,7 @@ def conv_layer_launch_i8(x: torch.Tensor, cin: int, w: torch.Tensor, dq: torch.T
     _build.launch("nt_conv2d_i8", x.device, x.data_ptr(), xcs, cin, w.data_ptr(),
                   dq.data_ptr(), bias.data_ptr(), inv.data_ptr(), out.data_ptr(),
                   out.shape[-1], out_coff, cout, b, h, wd, 3 if taps == 9 else 1,
-                  int(relu), _build.dtype_code(out))
+                  int(relu), _build.dtype_code(out), taps_mode)
 
 
 def conv_chain_int8_apply(x, qchain, out_cout: int, out_dtype=None) -> torch.Tensor:

@@ -7,7 +7,9 @@ fallback: a CUDA call whose kernel does not build or launch raises.
 
 ``launches`` counts kernel launches per kernel. Each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its path
-went through the kernels (see ``chip_smoke.py``).
+went through the kernels (see ``chip_smoke.py``). ``rdb_int8_int32_taps``
+counts the int8 RDB blocks that ran the per-channel ``int32_taps`` scheme
+(each also counts under ``rdb_int8``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from __future__ import annotations
 import torch
 
 KERNELS = ("d2s_packed", "correlation", "conv_chain", "conv_chain_dw3", "rdb",
-           "conv_chain_int8", "rdb_int8", "planar_chain")
+           "conv_chain_int8", "rdb_int8", "planar_chain", "rdb_int8_int32_taps",
+           "rdb_taps", "d2s_packed_planar", "probe")
 launches = dict.fromkeys(KERNELS, 0)
 
 

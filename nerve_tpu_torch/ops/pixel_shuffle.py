@@ -7,8 +7,11 @@ output channel ``c`` at spatial offset ``(i, j)``.
 ``depth_to_space_packed`` is the serving epilogue's layout: (B, sH, sW*C)
 packed rows, byte-identical to row-major (B, sH, sW, C). On a CUDA tensor it
 runs the hand-written kernel ``csrc/d2s_packed.cu``; on a CPU tensor its
-plain version ``depth_to_space_packed_plain``.
+plain version ``depth_to_space_packed_plain``. ``depth_to_space_packed_planar``
+writes the same rows from channel-planar phases (B, C*s², H, W), the input
+of ``scripts/diag_d2s.py``'s planar kernel, with ``nt_d2s_packed_planar``.
 """
+
 
 from __future__ import annotations
 
@@ -57,4 +60,29 @@ def depth_to_space_packed(x: torch.Tensor, scale: int) -> torch.Tensor:
     _build.launch("nt_d2s_packed", x.device, x.data_ptr(), out.data_ptr(),
                   b, h, w, c, scale, _build.dtype_code(x))
     dispatch.launches["d2s_packed"] += 1
+    return out
+
+
+def _check_planar(x: torch.Tensor, scale: int):
+    b, c_in, h, w = x.shape
+    return b, _check_channels(c_in, scale), h, w
+
+
+def depth_to_space_packed_planar_plain(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Plain version of the planar d2s kernel: reshape/permute."""
+    b, c, h, w = _check_planar(x, scale)
+    x = x.reshape(b, c, scale, scale, h, w).permute(0, 4, 2, 5, 3, 1)
+    return x.reshape(b, h * scale, w * scale * c)
+
+
+def depth_to_space_packed_planar(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Planar phases (B, C*s², H, W) → packed rows (B, H*s, W*s*C)."""
+    if not dispatch.use_kernel(x):
+        return depth_to_space_packed_planar_plain(x, scale)
+    b, c, h, w = _check_planar(x, scale)
+    x = x.contiguous()
+    out = torch.empty((b, h * scale, w * scale * c), dtype=x.dtype, device=x.device)
+    _build.launch("nt_d2s_packed_planar", x.device, x.data_ptr(), out.data_ptr(),
+                  b, h, w, c, scale, _build.dtype_code(x))
+    dispatch.launches["d2s_packed_planar"] += 1
     return out

@@ -66,11 +66,19 @@ def _rdb_kernel(x: torch.Tensor, params: Sequence[torch.Tensor]) -> torch.Tensor
         off += wk.shape[-1]
     if off != ctot:
         raise ValueError(f"RDB dense layers give {off} channels, fusion takes {ctot}")
-    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    return lff_launch(cat, lw, lb)
+
+
+def lff_launch(cat: torch.Tensor, lw: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
+    """Launch ``nt_rdb_lff`` on a full concatenation buffer (B, H, W, C + L·G):
+    ``(cat · lw + lb) · 0.2 + cat[..., :C]`` in float32, rounded once."""
+    b, h, w, ctot = cat.shape
+    c = lw.shape[1]
+    out = torch.empty((b, h, w, c), dtype=cat.dtype, device=cat.device)
     lwf, lbf = lw.float().contiguous(), lb.float().contiguous()
-    _build.launch("nt_rdb_lff", x.device, cat.data_ptr(), ctot, lwf.data_ptr(),
+    _build.launch("nt_rdb_lff", cat.device, cat.data_ptr(), ctot, lwf.data_ptr(),
                   lbf.data_ptr(), out.data_ptr(), c, b, h, w, RES_SCALE,
-                  _build.dtype_code(x))
+                  _build.dtype_code(cat))
     return out
 
 

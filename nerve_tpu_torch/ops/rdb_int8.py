@@ -1,15 +1,20 @@
 """Static post-training int8 residual dense block (RDB) chain.
 
-Counterpart of ``nerve_tpu/ops/rdb_int8.py``, in its production scheme
-(per-column weight scales, ``PER_CHANNEL_INT8 = False`` there; the
-per-channel ``int32_taps`` variant is not ported).
+Counterpart of ``nerve_tpu/ops/rdb_int8.py``, with both of its schemes.
 
 Scheme: per-tensor symmetric int8 activations with static scales from a
 calibration forward (:func:`calibrate_rdb_chain`: the block input and each
 dense layer's relu output); per-column symmetric int8 weights on the packed
 tap matrix, each row folded with the activation scale of the slot that owns
 its input channel (:func:`_owner_scales`), so one factor per column
-dequantises the int32 sum; exact float32 biases.
+dequantises the int32 sum; exact float32 biases. ``per_channel``
+quantisation shares one factor among an output channel's nine tap columns
+(the largest of the nine), which lets the nine taps' int32 sums add in int32
+and dequantise once (``int32_taps``). ``PER_CHANNEL_INT8`` (default False,
+as in the JAX package) picks the scheme of the model's quantise and apply
+calls, read at call time; ``DX_MAJOR_INT8`` the per-column tap order. The
+wire format does not record the scheme, so ``int32_taps`` checks that a
+chain's factors are tiled per channel and refuses a per-column chain.
 
 Wire format per block (:func:`quantize_rdb_block`, the JAX package's):
 ``wq`` L+1 int8 matrices (dense layer i ``(FEAT_OFF + C + i·G, 9·G)``,
@@ -21,14 +26,17 @@ layer's requant factor 1/s_f.
 
 Numerics (``rdb_chain_int8_xla``): the chain input is quantised once by
 division by block 0's s_in; each tap's int32 sum is dequantised and rounded
-to bfloat16, the taps added in float32 (dy outer, dx inner), float32 bias,
-relu, requantised by multiplication with row 3; the fusion is
+to bfloat16, the taps added in float32 (dy outer, dx inner; dx outer with
+``dx_major``, as ``_rdb_int8_kernel`` does), or with ``int32_taps`` the nine
+int32 sums added in int32 and the total times ``dq[i, :G]``; then float32
+bias, relu, requantised by multiplication with row 3; the fusion is
 ``(lff·ldq + lbias)·0.2 + x_q·s_in`` on the int8 block input; between
 blocks the result is requantised by division by the next block's s_in,
 after the last block rounded to ``out_dtype``.
 
 A CUDA tensor runs the hand-written kernels: the dense layers are
-``nt_conv2d_i8`` (``csrc/conv_int8.cu``) writing into the slots of an int8
+``nt_conv2d_i8`` (``csrc/conv_int8.cu``, in the tap schedule of the scheme)
+writing into the slots of an int8
 (B, H, W, C + L·G) concatenation buffer, and ``nt_rdb_lff_i8``
 (``csrc/rdb_int8.cu``) fuses and requantises into the next block's buffer.
 Any geometry (C, L, G) runs on the kernels; one whose layer does not fit a
@@ -46,6 +54,9 @@ from nerve_tpu_torch.ops import _build, dispatch
 from nerve_tpu_torch.ops.conv_chain import conv_chain_plain
 from nerve_tpu_torch.ops.conv_chain_int8 import (
     QMAX,
+    TAPS_DX,
+    TAPS_DY,
+    TAPS_INT32,
     _ceil_to,
     conv_layer_launch_i8,
     exact_float32,
@@ -58,6 +69,11 @@ FEAT_OFF = 8  # leading zero rows of the wire format's weight matrices
 GROWTH = 32
 NUM_LAYERS = 5
 RES_SCALE = 0.2
+# The scheme switches of the JAX module (rdb_int8.py:67, :75), read at call
+# time. PER_CHANNEL_INT8 must be the same when a model is quantised and when
+# it is served.
+DX_MAJOR_INT8 = False
+PER_CHANNEL_INT8 = False
 
 
 def calibrate_rdb_chain(x: torch.Tensor, params_list: Sequence) -> torch.Tensor:
@@ -95,16 +111,22 @@ def _owner_scales(features: int, k: int, scales: torch.Tensor,
     return scales[torch.tensor(owner[:k], device=scales.device)]
 
 
-def _quantize_columns(m: torch.Tensor):
+def _quantize_columns(m: torch.Tensor, per_channel_of: int = 0):
+    """Per-column int8; with ``per_channel_of`` = G, each output channel's
+    nine tap columns share the largest of their factors."""
     col = torch.clamp(m.abs().amax(dim=0), min=1e-12) / QMAX
+    if per_channel_of:
+        col = col.reshape(9, per_channel_of).amax(dim=0).repeat(9)
     return torch.clamp(torch.round(m / col), -QMAX, QMAX).to(torch.int8), col
 
 
 def quantize_rdb_block(params: Sequence[torch.Tensor], features: int,
-                       scales: torch.Tensor) -> Tuple[List[torch.Tensor], torch.Tensor,
-                                                      torch.Tensor]:
+                       scales: torch.Tensor, per_channel: bool = False,
+                       ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
     """One block's params + activation scales → ``(wq, dq, meta)`` in the
-    wire format (module docstring). L and G come from ``params``."""
+    wire format (module docstring). L and G come from ``params``. With
+    ``per_channel``, ``dq[i, :G]`` holds the per-channel factors (tiled over
+    the nine taps, the same wire format)."""
     scales = scales.float()
     ps = [torch.as_tensor(p).float() for p in params]
     num_layers = len(ps) // 2 - 1
@@ -116,7 +138,8 @@ def quantize_rdb_block(params: Sequence[torch.Tensor], features: int,
         ki = FEAT_OFF + features + growth * i
         wp = F.pad(w, (0, 0, FEAT_OFF, ki - FEAT_OFF - w.shape[2]))
         wcat = wp.permute(2, 0, 1, 3).reshape(ki, ntap)
-        q, col = _quantize_columns(wcat * _owner_scales(features, ki, scales, growth)[:, None])
+        q, col = _quantize_columns(wcat * _owner_scales(features, ki, scales, growth)[:, None],
+                                   growth if per_channel else 0)
         wq.append(q)
         dqs.append(col)
     lw, lb = ps[-2], ps[-1]
@@ -135,11 +158,17 @@ def quantize_rdb_block(params: Sequence[torch.Tensor], features: int,
     return wq, torch.stack(dqs), meta
 
 
-def quantize_rdb_chain(params_list: Sequence, scales: torch.Tensor):
+def quantize_rdb_chain(params_list: Sequence, scales: torch.Tensor, per_channel: bool = False):
     """Whole-chain quantisation: a tuple of per-block ``(wq, dq, meta)``."""
     features = params_list[0][0].shape[2]
-    return tuple(quantize_rdb_block(params, features, scales[b])
+    return tuple(quantize_rdb_block(params, features, scales[b], per_channel)
                  for b, params in enumerate(params_list))
+
+
+def _schemes(int32_taps, dx_major) -> Tuple[bool, bool]:
+    """The call's ``(int32_taps, dx_major)``, None taking the module switches."""
+    return (PER_CHANNEL_INT8 if int32_taps is None else bool(int32_taps),
+            DX_MAJOR_INT8 if dx_major is None else bool(dx_major))
 
 
 def chain_geometry(qchain) -> Tuple[int, int]:
@@ -148,7 +177,11 @@ def chain_geometry(qchain) -> Tuple[int, int]:
     return len(wq) - 1, wq[0].shape[1] // 9
 
 
-def _check_chain(qchain, features: int) -> Tuple[int, int]:
+def _check_chain(qchain, features: int, int32_taps: bool = False) -> Tuple[int, int]:
+    """(L, G) of ``qchain`` on ``features`` channels; raises on a mismatch,
+    and, for ``int32_taps``, on a chain quantised per column (its factors not
+    one per output channel tiled over the nine taps: ``dq[i, :G]`` would
+    dequantise every tap by the (0, 0) tap's)."""
     num_layers, growth = chain_geometry(qchain)
     for b, (wq, dq, meta) in enumerate(qchain):
         shapes = [tuple(w.shape) for w in wq]
@@ -160,17 +193,26 @@ def _check_chain(qchain, features: int) -> Tuple[int, int]:
             raise ValueError(f"int8 RDB block {b}: wq {shapes}, dq {tuple(dq.shape)}, meta "
                              f"{tuple(meta.shape)} do not fit C={features}, L={num_layers}, "
                              f"G={growth}")
+    if int32_taps:
+        dqs = torch.stack([dq for _wq, dq, _meta in qchain])
+        if not torch.equal(dqs, dqs[..., :growth].repeat(1, 1, 9)):
+            raise ValueError("int32_taps takes a chain quantised per channel "
+                             "(quantize_rdb_chain(..., per_channel=True)); this one is per column")
     return num_layers, growth
 
 
-def rdb_chain_int8_plain(x: torch.Tensor, qchain, out_dtype=None) -> torch.Tensor:
+def rdb_chain_int8_plain(x: torch.Tensor, qchain, out_dtype=None, int32_taps=None,
+                         dx_major=None) -> torch.Tensor:
     """Plain version, step by step the arithmetic of ``rdb_chain_int8_xla``
-    (``int32_taps=False``). int8 values are carried as integer-valued
-    float32 (exact); the concatenation leaves out the ``FEAT_OFF`` zero
-    channels, whose weight rows are zero."""
+    (and, with ``dx_major``, of the Pallas kernel's dx-outer tap order).
+    int8 values are carried as integer-valued float32 (exact: one tap's sum
+    is below 2²⁴), the int32 tap sums of ``int32_taps`` as int32; the
+    concatenation leaves out the ``FEAT_OFF`` zero channels, whose weight
+    rows are zero."""
     out_dtype = out_dtype or x.dtype
+    int32_taps, dx_major = _schemes(int32_taps, dx_major)
     features = x.shape[-1]
-    num_layers, growth = _check_chain(qchain, features)
+    num_layers, growth = _check_chain(qchain, features, int32_taps)
     xq = quantize_activation(x, qchain[0][2][2, 0]).float()
     with exact_float32():
         for b, (wq, dq, meta) in enumerate(qchain):
@@ -180,13 +222,20 @@ def rdb_chain_int8_plain(x: torch.Tensor, qchain, out_dtype=None) -> torch.Tenso
                 inp = torch.cat(feats, dim=-1)
                 wi = wq[i][FEAT_OFF:]
                 pad = F.pad(inp, (0, 0, 1, 1, 1, 1))
-                acc = torch.zeros((*inp.shape[:3], growth), dtype=torch.float32, device=x.device)
+                taps = {}  # (dy, dx) -> that tap's int32 sum, as exact float32
                 for dy in range(3):
                     yi = int_products(pad[:, dy:dy + h], wi[:, 3 * dy * growth:(3 * dy + 3) * growth])
                     for dx in range(3):
+                        taps[dy, dx] = yi[:, :, dx:dx + w, dx * growth:(dx + 1) * growth]
+                if int32_taps:
+                    acci = sum(t.to(torch.int32) for t in taps.values())
+                    acc = acci.float() * dq[i, :growth]
+                else:
+                    acc = torch.zeros((*inp.shape[:3], growth), dtype=torch.float32,
+                                      device=x.device)
+                    for dy, dx in sorted(taps, key=lambda t: t[::-1] if dx_major else t):
                         c0 = (3 * dy + dx) * growth
-                        yb = (yi[:, :, dx:dx + w, dx * growth:(dx + 1) * growth]
-                              * dq[i, c0:c0 + growth]).to(torch.bfloat16)
+                        yb = (taps[dy, dx] * dq[i, c0:c0 + growth]).to(torch.bfloat16)
                         acc = acc + yb.float()
                 f = torch.relu(acc + meta[0, i * growth:(i + 1) * growth])
                 feats.append(torch.clamp(
@@ -226,14 +275,18 @@ def lff_launch_i8(cat: torch.Tensor, ccat: int, lw: torch.Tensor, ldq: torch.Ten
                   out.data_ptr(), out.shape[-1], c, b, h, w, _build.dtype_code(out))
 
 
-def rdb_chain_int8_apply(x: torch.Tensor, qchain, out_dtype=None) -> torch.Tensor:
+def rdb_chain_int8_apply(x: torch.Tensor, qchain, out_dtype=None, int32_taps=None,
+                         dx_major=None) -> torch.Tensor:
     """The quantised RDB stack: (B, H, W, C) → (B, H, W, C) in ``out_dtype``
-    (default: x's), int8 between blocks."""
+    (default: x's), int8 between blocks. ``int32_taps`` (default
+    ``PER_CHANNEL_INT8``) takes a per-channel chain; ``dx_major`` (default
+    ``DX_MAJOR_INT8``) orders a per-column chain's taps dx outer."""
     out_dtype = out_dtype or x.dtype
+    int32_taps, dx_major = _schemes(int32_taps, dx_major)
     b, h, w, c = x.shape
-    num_layers, growth = _check_chain(qchain, c)
+    num_layers, growth = _check_chain(qchain, c, int32_taps)
     if not dispatch.use_kernel(x, *(t for wq, dq, meta in qchain for t in (*wq, dq, meta))):
-        return rdb_chain_int8_plain(x, qchain, out_dtype)
+        return rdb_chain_int8_plain(x, qchain, out_dtype, int32_taps, dx_major)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"int8 RDB output must be float32 or bfloat16, got {out_dtype}")
     ccat = c + num_layers * growth
@@ -243,13 +296,16 @@ def rdb_chain_int8_apply(x: torch.Tensor, qchain, out_dtype=None) -> torch.Tenso
             for _ in range(min(len(qchain), 2))]
     cats[0][..., :c] = quantize_activation(x, qchain[0][2][2, 0])
     out = None
+    mode = TAPS_INT32 if int32_taps else TAPS_DX if dx_major else TAPS_DY
     for k, (wq, dq, meta) in enumerate(qchain):
         cat = cats[k % 2]
         for i in range(num_layers):
             cin = c + growth * i
             conv_layer_launch_i8(cat, cin, tap_major(wq[i][FEAT_OFF:], 9, growth, growth),
-                                 dq[i].contiguous(), meta[0, i * growth:(i + 1) * growth],
-                                 meta[3, i * growth:(i + 1) * growth], cat, cin, relu=True)
+                                 (dq[i, :growth] if int32_taps else dq[i]).contiguous(),
+                                 meta[0, i * growth:(i + 1) * growth],
+                                 meta[3, i * growth:(i + 1) * growth], cat, cin, relu=True,
+                                 taps_mode=mode)
         lw = F.pad(wq[num_layers][FEAT_OFF:].t(), (0, _ceil_to(ccat, 16) - ccat)).contiguous()
         if k == len(qchain) - 1:
             out = torch.empty((b, h, w, c), dtype=out_dtype, device=x.device)
@@ -258,4 +314,6 @@ def rdb_chain_int8_apply(x: torch.Tensor, qchain, out_dtype=None) -> torch.Tenso
             out, s_next = cats[(k + 1) % 2], qchain[k + 1][2][2, :1]
         lff_launch_i8(cat, ccat, lw, meta[1, :c], meta[1, c:2 * c], meta[2, :1], s_next, out)
         dispatch.launches["rdb_int8"] += 1
+        if int32_taps:
+            dispatch.launches["rdb_int8_int32_taps"] += 1
     return out

@@ -15,7 +15,12 @@ different sums can flip an intermediate by one unit in the last place.
 The int8 kernels are held at the JAX package's kernel-vs-mirror levels: a
 conv chain within 2 x its largest activation scale, an RDB block with
 float32 output within 1e-4, a chain of blocks within 4 x its largest
-scale (one int8 step of a requantised intermediate may flip).
+scale (one int8 step of a requantised intermediate may flip); the
+per-channel ``int32_taps`` and per-column dx-major schedules bit-exact. The
+RDB under the TPU kernels' rounding contracts (``ops.rdb_taps``) is held at
+the RDB's levels and, in bfloat16, to a mean|Δ| against its contract's plain
+version at most ¼ of that against any other contract's; the planar d2s
+bit-exact.
 """
 
 import importlib
@@ -24,6 +29,7 @@ import pytest
 import torch
 
 from nerve_tpu_torch import ops
+from nerve_tpu_torch.diag import probe
 from nerve_tpu_torch.ops import (
     conv_chain,
     conv_chain_int8,
@@ -32,6 +38,7 @@ from nerve_tpu_torch.ops import (
     planar_chain,
     rdb,
     rdb_int8,
+    rdb_taps,
 )
 
 d2s = importlib.import_module("nerve_tpu_torch.ops.pixel_shuffle")
@@ -216,3 +223,80 @@ def test_rdb_int8(cuda, geometry):
     assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == x.shape
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= 4 * scales.max().item(), f"max|err| {err}, scales {scales.max().item()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["int32_taps", "per_column_dx"])
+def test_rdb_int8_schemes(cuda, scheme):
+    """The per-channel int32-tap scheme and the per-column scheme with dx
+    outer, bit-exact, each counted under its counters."""
+    int32_taps, dx_major = scheme == "int32_taps", scheme == "per_column_dx"
+    g = torch.Generator().manual_seed(8)
+    plist = [_rdb_params(g, 16, cuda) for _ in range(2)]
+    x = _rand(g, 1, 10, 33, 16, std=0.5).to(cuda)
+    scales = rdb_int8.calibrate_rdb_chain(x, plist)
+    qchain = rdb_int8.quantize_rdb_chain(plist, scales, per_channel=int32_taps)
+    for blk in qchain:
+        got = ops.rdb_chain_int8_apply(x, (blk,), torch.float32, int32_taps, dx_major)
+        ref = rdb_int8.rdb_chain_int8_plain(x, (blk,), torch.float32, int32_taps, dx_major)
+        assert torch.equal(got, ref)
+    n0 = dict(dispatch.launches)
+    got = ops.rdb_chain_int8_apply(x.bfloat16(), qchain, None, int32_taps, dx_major)
+    assert dispatch.launches["rdb_int8"] == n0["rdb_int8"] + 2
+    assert (dispatch.launches["rdb_int8_int32_taps"]
+            == n0["rdb_int8_int32_taps"] + (2 if int32_taps else 0))
+    ref = rdb_int8.rdb_chain_int8_plain(x.bfloat16(), qchain, None, int32_taps, dx_major)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", [*rdb_taps.CONTRACTS, "noshift", "nolff"])
+def test_rdb_taps(cuda, dtype, mode):
+    """Each rounding contract and ablation on a ragged frame; C=12 takes the
+    element loads, C=64 the widest layers (cin 192 on a 16-wide slice)."""
+    g = torch.Generator().manual_seed(9)
+    for c, shape in ((12, (2, 13, 37)), (64, (1, 9, 35))):
+        params = [p.to(dtype) for p in _rdb_params(g, c, cuda)]
+        x = _rand(g, *shape, c).to(cuda, dtype)
+        n0 = dispatch.launches["rdb_taps"]
+        got = ops.rdb_taps_apply(x, params, mode)
+        assert dispatch.launches["rdb_taps"] == n0 + 1
+        _check("rdb", got, rdb_taps.rdb_taps_plain(x, params, mode), dtype)
+        if dtype == torch.bfloat16 and mode in rdb_taps.CONTRACTS:
+            mine, least_other = rdb_taps.contract_margin(got, x, params, mode)
+            assert mine <= 0.25 * least_other, (mode, c, mine, least_other)
+
+
+@pytest.mark.cuda
+def test_rdb_taps_matonly_launches(cuda):
+    g = torch.Generator().manual_seed(10)
+    params = [p.bfloat16() for p in _rdb_params(g, 16, cuda)]
+    x = _rand(g, 1, 10, 33, 16).to(cuda, torch.bfloat16)
+    n0 = dispatch.launches["rdb_taps"]
+    assert ops.rdb_taps_apply(x, params, "matonly").shape == x.shape
+    torch.cuda.synchronize()
+    assert dispatch.launches["rdb_taps"] == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d2s_packed_planar_bit_exact(cuda, dtype):
+    g = torch.Generator().manual_seed(11)
+    for shape, s in (((2, 12, 13, 37), 2), ((1, 27, 5, 9), 3)):
+        x = _rand(g, *shape).to(cuda, dtype)
+        n0 = dispatch.launches["d2s_packed_planar"]
+        got = ops.depth_to_space_packed_planar(x, s)
+        assert dispatch.launches["d2s_packed_planar"] == n0 + 1
+        assert torch.equal(got, d2s.depth_to_space_packed_planar_plain(x, s))
+        assert torch.equal(got, d2s.depth_to_space_packed_plain(x.permute(0, 2, 3, 1), s))
+
+
+@pytest.mark.cuda
+def test_probe(cuda, capsys):
+    n0 = dispatch.launches["probe"]
+    assert probe.main([]) == 0
+    assert dispatch.launches["probe"] == n0 + 1
+    assert capsys.readouterr().out.strip() == "probe ok"
+    a = _rand(torch.Generator().manual_seed(12), 8, 128).to(cuda)
+    assert torch.equal(probe.probe_scale2(a), probe.probe_scale2_plain(a))
