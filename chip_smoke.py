@@ -5,7 +5,10 @@
 
 Phases, each of which raises on failure and prints its wall time:
 
-1. Build: ``nvcc`` compiles ``nerve_tpu_torch/csrc`` for ``sm_90a``.
+1. Build: ``nvcc`` compiles ``nerve_tpu_torch/csrc`` for ``sm_90a``; the
+   bf16 dense-convolution kernels' SASS must hold warpgroup products
+   (``HGMMA``) and no ``mma.sync`` (``HMMA``), printed with their ptxas
+   registers and spills.
 2. Device: the probe of ``diag.probe`` (a matrix product and the probe
    kernel), then the card's name and power limit (``nvidia-smi``); TF32 off.
 3. Kernels: each of the eight CUDA kernels against its plain PyTorch version
@@ -15,7 +18,10 @@ Phases, each of which raises on failure and prints its wall time:
    least time the card could take for the same work (``bound_ms``) and,
    where one PyTorch call computes the same function, that call's time
    (``library_ms``). The bf16 kernels run in bfloat16 and float32; the int8
-   kernels take scales calibrated on their own inputs.
+   kernels take scales calibrated on their own inputs. Then the bf16 dense
+   convolution per conv-chain site and per dense layer of one RDB block,
+   each beside cuDNN and its own bound (``diag.conv``, one ``{"conv"}``
+   line).
 4. bf16 slice: ``SuperResolutionNet`` (64 features, 8 RDBs, temporal window
    1, flow at half resolution, bfloat16) with seeded weights, primed on
    frame 0 of a seeded 1080×1920 video and stepped with
@@ -66,6 +72,7 @@ import importlib
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -80,9 +87,28 @@ from nerve_tpu_torch.diag import _common
 from nerve_tpu_torch.diag import d2s as diag_d2s
 from nerve_tpu_torch.diag import probe
 from nerve_tpu_torch.diag import rdb as diag_rdb
+from nerve_tpu_torch.diag.conv import (
+    BLOCKS,
+    FEATURES,
+    STEPS,
+    H,
+    W,
+    bound,
+    chain_bytes,
+    chain_ops,
+    conv_params,
+    cudnn_chain,
+    measure,
+    nbytes,
+    pixels,
+    run_frames,
+    run_stream,
+    seeded_lightweight,
+    seeded_model,
+    serving_inputs,
+)
 from nerve_tpu_torch.models import (
     LightweightSuperResolution,
-    SuperResolutionNet,
     quantize_sr,
     streaming_prime,
     streaming_step,
@@ -101,9 +127,6 @@ from nerve_tpu_torch.ops import (
 
 d2s = importlib.import_module("nerve_tpu_torch.ops.pixel_shuffle")
 
-H, W = 1080, 1920
-FEATURES, BLOCKS = 64, 8
-STEPS = 4  # output frames; the first is not timed
 # Slice limits on the [0, 1] bfloat16 output, kernels vs plain versions.
 # Measured 3.9e-3 and 6.3e-5 on an H100 (one-ulp bf16 flips carried through
 # 8 RDBs); a wrong tap, channel or edge moves outputs by O(0.1).
@@ -119,9 +142,6 @@ LIGHT_MAX_ABS, LIGHT_MEAN_ABS = 2e-2, 1.5e-8
 # Its body through the planar chain vs through the per-layer kernels,
 # relative to max|per-layer|: the conv-chain level.
 PLANAR_BODY_REL = 2.4e-2
-# H100 SXM data sheet: device memory rate and dense tensor-core peaks.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 
 def conv_chain_int8_plain_op(x, qchain, out_cout, out_dtype=None):
@@ -198,42 +218,40 @@ def _randn(g, shape, std=1.0):
     return torch.randn(shape, generator=g) * std
 
 
-def conv_params(g, widths, dev, acts=None, kinds=None):
-    out = []
-    for i, (cin, cout) in enumerate(zip(widths, widths[1:])):
-        act = acts[i] if acts else ("relu" if i < len(widths) - 2 else "none")
-        k = kinds[i] if kinds else 3
-        out.append((_randn(g, (k, k, cin, cout), (k * k * cin) ** -0.5).to(dev),
-                    _randn(g, (cout,), 0.1).to(dev), act))
-    return out
-
-
 # --------------------------------------------------------------------------- #
 # Work counts: the bound is max(ops / peak, bytes / memory rate)
 # --------------------------------------------------------------------------- #
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def pixels(x) -> int:
-    x = x[0] if isinstance(x, (list, tuple)) else x
-    return math.prod(x.shape[:3])
-
-
-def chain_ops(params, npix: int) -> int:
-    """Multiply-adds ×2 of a chain of dense convolutions."""
-    return sum(2 * math.prod(w.shape) * npix for w, _b, _a in params)
-
-
 def rdb_ops(plist, npix: int) -> int:
     return sum(2 * math.prod(p.shape) * npix
                for params in plist for p in params if p.ndim > 1)
 
 
-def bound(ops_count: int, bytes_count: int, kind: str):
-    t_ops = ops_count / PEAK_OPS_PER_S[kind]
-    t_bytes = bytes_count / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+def check_sass(lib: Path) -> None:
+    """The bf16 dense-convolution kernels (``conv_wgmma_kernel<K, N>``) must
+    issue warpgroup products (``HGMMA``) and no ``mma.sync`` (``HMMA``):
+    print each one's count and its ptxas registers and spills."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif name and "conv_wgmma_kernel" in name:
+            c = counts.setdefault(name, [0, 0])
+            c[0] += "HGMMA" in line
+            c[1] += re.search(r"\bHMMA\b", line) is not None
+    log = lib.with_suffix(".log").read_text().splitlines()
+    for name, (hgmma, hmma) in sorted(counts.items()):
+        k, n = re.search(r"ILi(\d+)ELi(\d+)E", name).groups()
+        usage = dict.fromkeys(u.split(":", 1)[-1].strip() for i, line in enumerate(log)
+                              if "Compiling entry function" in line and name in line
+                              for u in log[i + 1:i + 5] if "spill" in u or "Used" in u)
+        print(f"sass conv_wgmma_kernel<{k}, {n}>: {hgmma} HGMMA, {hmma} HMMA; "
+              f"{'; '.join(usage)}", flush=True)
+    if not counts or any(hgmma == 0 or hmma for hgmma, hmma in counts.values()):
+        raise AssertionError(f"the bf16 conv kernels do not run on wgmma alone: {counts}")
 
 
 # --------------------------------------------------------------------------- #
@@ -245,42 +263,9 @@ def library_d2s(x):
         b, 2 * h, 2 * w * (c // 4))
 
 
-def cudnn_chain(params, dt):
-    """cuDNN ``F.conv2d`` per layer (``groups=C`` for a depthwise one),
-    channels_last, bias in the call."""
-    layers = []
-    for w, b, act in params:
-        wk = w.permute(2, 0, 1).unsqueeze(1) if w.ndim == 3 else w.permute(3, 2, 0, 1)
-        layers.append((wk.to(dt).contiguous(memory_format=torch.channels_last), b.to(dt), act,
-                       w.shape[0] // 2, w.shape[2] if w.ndim == 3 else 1))
-
-    def run(x):
-        h = conv_chain._concat(x).permute(0, 3, 1, 2)
-        for w, b, act, pad, groups in layers:
-            h = F.conv2d(h, w, b, padding=pad, groups=groups)
-            if act == "relu":
-                h = torch.relu(h)
-        return h.permute(0, 2, 3, 1)
-    return run
-
-
 # --------------------------------------------------------------------------- #
 # Kernel checks
 # --------------------------------------------------------------------------- #
-def serving_inputs(g, dev, dt):
-    """The five conv-chain sites' inputs and parameters at 1080p."""
-    def act(*shape):
-        return _randn(g, shape).to(dev, dt)
-    return [
-        (act(1, H, W, 3), conv_params(g, [3, FEATURES], dev, ["relu"])),
-        (act(2, H // 2, W // 2, 81), conv_params(g, [81, 128, 64, 32, 2], dev)),
-        ([act(1, H, W, FEATURES) for _ in range(3)],
-         conv_params(g, [3 * FEATURES, FEATURES, FEATURES, 3], dev)),
-        (act(1, H, W, FEATURES), conv_params(g, [FEATURES, FEATURES], dev, ["relu"])),
-        (act(1, H, W, FEATURES), conv_params(g, [FEATURES, 12], dev, ["none"])),
-    ]
-
-
 def bf16_kernel_cases(dev, dt, serving: bool):
     """name -> (label, kernel call, plain call, work) at small or serving shapes."""
     g = torch.Generator().manual_seed(7)
@@ -323,8 +308,7 @@ def bf16_kernel_cases(dev, dt, serving: bool):
     libs = [(xx, cudnn_chain(p, dt)) for xx, p in sites]
     corr_ops = 2 * 81 * f1.shape[-1] * pixels(f1)
     out_corr = math.prod(f1.shape[:3]) * 81 * f1.element_size()
-    chain_bytes = sum(nbytes(*(xx if isinstance(xx, list) else [xx]), *(t for w, b, _ in p for t in (w, b)))
-                      + pixels(xx) * p[-1][0].shape[-1] * dt.itemsize for xx, p in sites)
+    site_bytes = sum(chain_bytes(xx, p, dt) for xx, p in sites)
     return {
         "d2s_packed": (label, lambda: ops.depth_to_space_packed(x, 2),
                        lambda: d2s.depth_to_space_packed_plain(x, 2),
@@ -334,7 +318,7 @@ def bf16_kernel_cases(dev, dt, serving: bool):
                         bound(corr_ops, nbytes(f1, f2) + out_corr, "bf16")),
         "conv_chain": (label, chains(ops.conv_chain_apply), chains(conv_chain.conv_chain_plain),
                        lambda: [fn(xx) for xx, fn in libs],
-                       bound(sum(chain_ops(p, pixels(xx)) for xx, p in sites), chain_bytes,
+                       bound(sum(chain_ops(p, pixels(xx)) for xx, p in sites), site_bytes,
                              "bf16")),
         "conv_chain_dw3": (lw_label, dw_layers(ops.conv_chain_apply),
                            dw_layers(conv_chain.conv_chain_plain),
@@ -557,78 +541,12 @@ def check_diag_kernels(dev) -> dict:
 # --------------------------------------------------------------------------- #
 # The slices
 # --------------------------------------------------------------------------- #
-def seed_all(model, seed: int, small=("upsampler",)):
-    """Overwrite every parameter and BN statistic with seeded non-zero values
-    (a zero-initialised layer would hide the path behind it); kernels whose
-    name holds a word of ``small`` are scaled by 0.1."""
-    g = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if p.ndim == 1:
-                v = 1.0 + 0.1 * _randn(g, p.shape) if name.endswith("scale") else 0.05 * _randn(g, p.shape)
-            else:
-                v = _randn(g, p.shape, math.prod(p.shape[:-1]) ** -0.5)
-                if any(word in name for word in small):
-                    v = v * 0.1
-            p.copy_(v)
-        for name, buf in model.named_buffers():
-            if name.endswith(("mean", "var")):
-                buf.copy_(torch.rand(buf.shape, generator=g) + 0.5 if name.endswith("var")
-                          else 0.1 * _randn(g, buf.shape))
-    return model
-
-
-def seeded_model(dev, seed: int, **quant) -> SuperResolutionNet:
-    """The flagship model, seeded (the zero-initialised flow3/upsampler would
-    make the flow 0). ``quant`` (``quantized``, ``quantized_chains``) adds
-    int8 state, which draws nothing: the same seed gives the same weights
-    with or without it."""
-    return seed_all(SuperResolutionNet(scale_factor=2, num_features=FEATURES,
-                                       num_residual_blocks=BLOCKS, temporal_window=1,
-                                       flow_downsample=2, dtype=torch.bfloat16, device=dev,
-                                       **quant).eval(), seed)
-
-
-def seeded_lightweight(dev, seed: int) -> LightweightSuperResolution:
-    """The lightweight model in bfloat16, seeded (the zero-initialised tail
-    would make the output the plain bicubic)."""
-    return seed_all(LightweightSuperResolution(scale_factor=2, dtype=torch.bfloat16,
-                                               device=dev).eval(), seed, small=("tail",))
-
-
-def run_stream(model, video):
-    """Prime on frame 0 and step through the rest; (outputs, ms per timed step)."""
-    carry = streaming_prime(model, video[0])
-    outs, times = [], []
-    for frame in video[1:]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        carry, out = streaming_step(model, carry, frame, "packed")
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        outs.append(out)
-    return outs, times[1:]
-
-
 def check_outputs(outs):
     for out in outs:
         if tuple(out.shape) != (1, 2 * H, 2 * W * 3):
             raise AssertionError(f"output shape {tuple(out.shape)}")
         if not bool(torch.isfinite(out).all()) or out.min() < 0 or out.max() > 1:
             raise AssertionError("output not finite or outside [0, 1]")
-
-
-def run_frames(model, video):
-    """Each frame through the single-frame model, ``"packed"``; (outputs, ms
-    per timed frame)."""
-    outs, times = [], []
-    for frame in video:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs.append(model(frame, "packed"))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return outs, times[1:]
 
 
 def drive(model, video, launched, idle, run=run_stream):
@@ -882,8 +800,10 @@ def main() -> int:
         _build.library()
         print(f"built {lib.name}", flush=True)
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or re.search(r"\b[1-9]\d* bytes spill", line):
+            if ("registers" in line or "Performance Loss" in line
+                    or re.search(r"\b[1-9]\d* bytes spill", line)):
                 print(f"  {line.strip()}")
+        check_sass(lib)
     with phase("device"):
         dispatch.reset_launches()
         probe.main([])
@@ -897,6 +817,7 @@ def main() -> int:
               f"device {torch.cuda.get_device_name(0)}", flush=True)
     with phase("kernels"):
         summary = check_kernels(dev)
+        print(json.dumps({"conv": measure(dev, reps=5, small=False)}), flush=True)
     g = torch.Generator().manual_seed(1)
     video = [torch.rand((1, H, W, 3), generator=g).to(dev) for _ in range(STEPS + 1)]
     with phase("bf16 slice"):

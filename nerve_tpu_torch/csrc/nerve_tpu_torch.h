@@ -33,13 +33,18 @@ int nt_d2s_packed_planar(const void* x, void* out, int b, int h, int w, int c,
 int nt_correlation(const void* f1, const void* f2, void* out, int b, int h,
                    int w, int c, int d, int dtype, void* stream);
 
-// One SAME 3x3 or 1x1 conv layer. Reads channels [0, cin) of x (channel
-// stride x_cstride), writes channels [out_coff, out_coff + cout) of out
-// (channel stride out_cstride). w is HWIO (ksize, ksize, cin, cout).
-int nt_conv2d(const void* x, int x_cstride, int cin, const float* w,
-              const float* bias, void* out, int out_cstride, int out_coff,
-              int cout, int b, int h, int w_, int ksize, int relu, int dtype,
-              void* stream);
+// One SAME 3x3 or 1x1 conv layer. Reads channels [0, cin) of the input,
+// writes channels [out_coff, out_coff + cout) of out (channel stride
+// out_cstride). The input is x0 (channel stride x_cstride) when nx = 1, or
+// the channel concatenation of x0, x1, x2 (nx = 2 or 3 parts of x_cstride
+// channels each, cin = nx * x_cstride), read in place. NT_F32: nx = 1, w is
+// float32 HWIO (ksize, ksize, cin, cout). NT_BF16: x_cstride a multiple of
+// 8 (of 16 when nx > 1), every part 16-byte aligned, and w the bf16 image
+// of ops/conv_chain.py `pack_conv_weights`.
+int nt_conv2d(const void* x0, const void* x1, const void* x2, int nx,
+              int x_cstride, int cin, const void* w, const float* bias,
+              void* out, int out_cstride, int out_coff, int cout, int b,
+              int h, int w_, int ksize, int relu, int dtype, void* stream);
 
 // One SAME depthwise 3x3 layer: out[..., c] = sum over the 9 taps of
 // x[y+dy-1, x+dx-1, c] * w[dy, dx, c], rounded to the dtype, + bias[c],
@@ -124,6 +129,7 @@ const char* nt_error_string(int err);
 
 #ifdef __CUDACC__
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 // Tensor-core building blocks (sm_80+): ldmatrix of four 8x8 b16 matrices
 // (8 rows of 16 bytes each) from shared memory, one bf16 m16n8k16 product
@@ -151,5 +157,183 @@ __device__ __forceinline__ void nt_mma_s8(int (&d)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Hopper (sm_90a) building blocks: mbarriers, TMA and bulk copies into
+// shared memory that complete on an mbarrier, and warpgroup products.
+__device__ __forceinline__ void nt_mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(nt_smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void nt_fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void nt_mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(nt_smem_addr(bar)) : "memory");
+}
+// Arrive and expect `bytes` more to land on the barrier from async copies.
+__device__ __forceinline__ void nt_mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   nt_smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool nt_mbar_try_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(nt_smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Wait until the barrier's phase of parity `parity` has completed. A wait
+// that outlasts 10 s traps, so that a copy that never lands fails the
+// launch instead of holding the card.
+__device__ __forceinline__ void nt_mbar_wait(uint64_t* bar, unsigned parity) {
+  if (nt_mbar_try_wait(bar, parity)) return;
+  uint64_t t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
+  while (!nt_mbar_try_wait(bar, parity)) {
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    if (t - t0 > 10000000000ull) __trap();
+  }
+}
+// TMA: the box of a 4-D tensor map at coordinates (c0 innermost .. c3) into
+// shared memory; coordinates outside the tensor read as zeros.
+__device__ __forceinline__ void nt_tma_load_4d(void* dst, const void* map, uint64_t* bar,
+                                               int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(nt_smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(nt_smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+// Bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned).
+__device__ __forceinline__ void nt_bulk_load(void* dst, const void* src, unsigned bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(nt_smem_addr(dst)), "l"(src), "r"(bytes), "r"(nt_smem_addr(bar))
+      : "memory");
+}
+// A wgmma shared-memory operand without swizzle: K-major core matrices of
+// 8 rows x 16 bytes; `lbo` the byte step between the two core matrices of
+// a k16 slice, `sbo` between 8-row groups.
+__device__ __forceinline__ uint64_t nt_wgmma_desc(unsigned smem_addr, unsigned lbo,
+                                                  unsigned sbo) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+// A K-major operand as TMA's 32-byte swizzle lays it out: rows of 32 bytes
+// (16 bf16 of K), 8-row groups 256 bytes apart. The start may sit on any
+// row: the product applies the swizzle to the absolute shared-memory
+// address, as TMA does, so the base offset stays 0 (on an H100, a base
+// offset of (addr >> 7) & 7 gives wrong sums for starts off a 256-byte
+// boundary).
+__device__ __forceinline__ uint64_t nt_wgmma_desc_sw32(unsigned smem_addr) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
+}
+__device__ __forceinline__ void nt_wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void nt_wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of products are still running.
+template <int N>
+__device__ __forceinline__ void nt_wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void nt_setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void nt_setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// D (64 x N, float32, in registers) += A (64 x 16) * B (16 x N), bf16, both
+// from shared memory (descriptors da, db); scale_d = 0 overwrites D. Thread
+// t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 + 8i and columns
+// 8j + 2 (t % 4) + {0, 1} in d[4j + 2i + {0, 1}].
+__device__ __forceinline__ void nt_wgmma_m64n8k16(float (&d)[4], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void nt_wgmma_m64n16k16(float (&d)[8], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void nt_wgmma_m64n32k16(float (&d)[16], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void nt_wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void nt_wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void nt_wgmma(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 8) nt_wgmma_m64n8k16(d, da, db, scale_d);
+  if constexpr (N == 16) nt_wgmma_m64n16k16(d, da, db, scale_d);
+  if constexpr (N == 32) nt_wgmma_m64n32k16(d, da, db, scale_d);
+  if constexpr (N == 64) nt_wgmma_m64n64k16(d, da, db, scale_d);
+  if constexpr (N == 128) nt_wgmma_m64n128k16(d, da, db, scale_d);
 }
 #endif

@@ -37,7 +37,8 @@ SIGNATURES = {
     "nt_rdb_taps_conv": (_I, (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P)),
     "nt_probe_scale2": (_I, (_P, _P, _I, _P)),
     "nt_correlation": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
-    "nt_conv2d": (_I, (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_conv2d": (_I, (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P)),
     "nt_dwconv3": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "nt_planar_chain": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "nt_rdb_lff": (_I, (_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P)),

@@ -61,8 +61,7 @@ def _rdb_kernel(x: torch.Tensor, params: Sequence[torch.Tensor]) -> torch.Tensor
     off = c
     for i in range(num_layers):
         wk, bk = params[2 * i], params[2 * i + 1]
-        conv_layer_launch(cat, off, wk.to(x.dtype).float().contiguous(),
-                          bk.float().contiguous(), cat, off, relu=True)
+        conv_layer_launch(cat, off, wk, bk.float().contiguous(), cat, off, relu=True)
         off += wk.shape[-1]
     if off != ctot:
         raise ValueError(f"RDB dense layers give {off} channels, fusion takes {ctot}")

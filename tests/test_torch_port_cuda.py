@@ -112,14 +112,64 @@ def test_correlation(cuda, dtype, d):
            correlation.correlation_plain(f1, f2, d), dtype)
 
 
+# name -> (input part widths, layer widths, kernel sizes): every output tile
+# of the bf16 kernel (cout 2, 3, 12, 32, 64, 128), 1x1 and 3x3 layers, each
+# input route (cin 3 and 81 padded, three 64-channel parts read in place,
+# three 4-channel parts padded), the five flagship sites' widths.
+CHAIN_GEOMETRIES = {
+    "ragged_list": ([4, 4, 4], [12, 40, 20, 3, 12], [3, 1, 3, 3]),
+    "head": ([3], [3, 64], [3]),
+    "flow_head": ([81], [81, 128, 64, 32, 2], [3, 3, 3, 3]),
+    "attention": ([64, 64, 64], [192, 64, 64, 3], [3, 3, 3]),
+    "gff_upsampler": ([64], [64, 64, 12], [3, 3]),
+    "pointwise": ([32], [32, 32, 128, 12], [1, 1, 1]),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv_chain(cuda, dtype):
+@pytest.mark.parametrize("geometry", list(CHAIN_GEOMETRIES))
+def test_conv_chain(cuda, dtype, geometry):
+    """Dense chains on a ragged 2 x 13 x 37 frame, one launch per layer."""
+    parts, widths, kinds = CHAIN_GEOMETRIES[geometry]
     g = torch.Generator().manual_seed(2)
-    xs = [_rand(g, 2, 9, 35, 4).to(cuda, dtype) for _ in range(3)]
-    params = _conv_params(g, [12, 40, 20, 3, 12], [3, 1, 3, 3], cuda)
+    xs = [_rand(g, 2, 13, 37, c).to(cuda, dtype) for c in parts]
+    params = _conv_params(g, widths, kinds, cuda)
+    n0 = dispatch.launches["conv_chain"]
+    got = ops.conv_chain_apply(xs, params)
+    assert dispatch.launches["conv_chain"] == n0 + len(kinds)
+    _check("conv_chain", got, conv_chain.conv_chain_plain(xs, params), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["resident", "streamed"])
+def test_conv_chain_many_tiles(cuda, geometry):
+    """A frame of several tiles for every block of the bf16 kernel, so that
+    its ring of stages turns over many times: weights resident (64 -> 32)
+    and streamed with the input (three 64-channel frames -> 64)."""
+    g = torch.Generator().manual_seed(14)
+    parts, widths = ([64], [64, 32]) if geometry == "resident" else ([64] * 3, [192, 64])
+    xs = [_rand(g, 2, 136, 520, c).to(cuda, torch.bfloat16) for c in parts]
+    params = _conv_params(g, widths, [3], cuda)
     _check("conv_chain", ops.conv_chain_apply(xs, params),
-           conv_chain.conv_chain_plain(xs, params), dtype)
+           conv_chain.conv_chain_plain(xs, params), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin", [64, 192])
+def test_conv_layer_rdb_slot(cuda, dtype, cin):
+    """The RDB form: the leading ``cin`` channels of a 224-channel buffer in,
+    a 32-channel slot of the same buffer out, every other channel untouched."""
+    g = torch.Generator().manual_seed(13)
+    buf = _rand(g, 2, 13, 37, 224).to(cuda, dtype)
+    (w, b, _act), = _conv_params(g, [cin, 32], [3], cuda)
+    before = buf.clone()
+    conv_chain.conv_layer_launch(buf, cin, w, b, buf, cin, relu=True)
+    ref = conv_chain.conv_chain_plain(before[..., :cin], [(w, b, "relu")])
+    _check("conv_chain", buf[..., cin:cin + 32], ref, dtype)
+    assert torch.equal(buf[..., :cin], before[..., :cin])
+    assert torch.equal(buf[..., cin + 32:], before[..., cin + 32:])
 
 
 def _dw_params(g, c, act, dev):
