@@ -6,19 +6,27 @@
 Phases, each of which raises on failure and prints its wall time:
 
 1. Build: ``nvcc`` compiles ``nerve_tpu_torch/csrc`` for ``sm_90a``; the
-   bf16 dense-convolution kernels' SASS must hold warpgroup products
-   (``HGMMA``) and no ``mma.sync`` (``HMMA``), printed with their ptxas
-   registers and spills.
+   dense-convolution kernels' SASS must hold warpgroup products and no
+   ``mma.sync`` products: ``HGMMA`` and no ``HMMA`` for the bf16 layer,
+   ``IGMMA`` and no ``IMMA`` for the int8 layer, each instance printed with
+   its ptxas registers and spills.
 2. Device: the probe of ``diag.probe`` (a matrix product and the probe
    kernel), then the card's name and power limit (``nvidia-smi``); TF32 off.
-3. Kernels: each of the eight CUDA kernels against its plain PyTorch version
+3. Kernels: each of the nine CUDA kernels against its plain PyTorch version
    on the card, at a small ragged shape and at the serving shapes of the
    flagship path (1080p → 2160p) and, for the depthwise layer and the planar
    chain, of the lightweight body at 1080p, with median times from CUDA events, the
    least time the card could take for the same work (``bound_ms``) and,
    where one PyTorch call computes the same function, that call's time
    (``library_ms``). The bf16 kernels run in bfloat16 and float32; the int8
-   kernels take scales calibrated on their own inputs. Then the bf16 dense
+   kernels take scales calibrated on their own inputs and are bit-exact,
+   the int8 RDB also in its three tap schedules over many tiles per block
+   at a ragged shape; the input quantisation (``quantize_i8``) is bit-exact
+   on values at and next to (k + 0.5)·s, at a scale where x · (1 / s)
+   would round some of them otherwise, and past ±127; its serving shape is the
+   attention site's three 64-channel frames. The int8 kernels' library
+   time is ``torch._int_mm``'s for the same int32 products (products only,
+   ``diag.conv.int_mm_yardstick``). Then the bf16 dense
    convolution per conv-chain site and per dense layer of one RDB block,
    each beside cuDNN and its own bound (``diag.conv``, one ``{"conv"}``
    line).
@@ -31,9 +39,13 @@ Phases, each of which raises on failure and prints its wall time:
 5. int8 slice: the same seeded model built with ``quantized=True,
    quantized_chains=True``, calibrated by ``quantize_sr`` on a (1, 3, 270,
    480, 3) crop of the video, then streamed the same way. ``rdb_int8``,
-   ``conv_chain_int8``, ``correlation`` and ``d2s_packed`` must launch and
-   ``rdb`` and ``conv_chain`` must not; the output must agree with the int8
-   plain versions' and lie within ``INT8_MIN_PSNR`` dB of the bf16 slice's.
+   ``conv_chain_int8``, ``quantize_i8``, ``correlation`` and ``d2s_packed``
+   must launch (10 ``conv_chain_int8``, 8 ``rdb_int8`` and 6 ``quantize_i8``
+   per step, one more head and quantisation for the prime) and ``rdb`` and
+   ``conv_chain`` must not; each of the six int8 states must pack its
+   weights once in the run (no frame after the first packs); the output
+   must agree with the int8 plain
+   versions' and lie within ``INT8_MIN_PSNR`` dB of the bf16 slice's.
 6. Diagnostic paths: (a) the kernels of the diagnostic entry points
    (``nerve_tpu_torch.diag``) against their plain versions: the int8 RDB's
    per-channel ``int32_taps`` and dx-major schemes (bit-exact), the RDB
@@ -42,7 +54,8 @@ Phases, each of which raises on failure and prints its wall time:
    at most ¼ of that against any other contract's), the planar d2s and the
    probe kernel, at a small ragged shape in float32 and bfloat16 and at the
    serving shapes (the contracts ``pallas_dx`` and ``s2d``);
-   (b) the int8 slice once more with ``rdb_int8.PER_CHANNEL_INT8 = True``:
+   (b) the int8 slice once more with ``rdb_int8.PER_CHANNEL_INT8 = True``
+   and the model built inside ``torch.inference_mode()`` (the same checks):
    ``rdb_int8_int32_taps`` must launch, the output must agree with its
    plain run at the int8 limits and lie within ``INT8_MIN_PSNR`` dB of the
    bf16 slice's; (c) the RDB cost-attribution table of ``diag.rdb`` (one
@@ -98,9 +111,12 @@ from nerve_tpu_torch.diag.conv import (
     chain_ops,
     conv_params,
     cudnn_chain,
+    int8_layer_shapes,
+    int_mm_yardstick,
     measure,
     nbytes,
     pixels,
+    rdb_int8_shapes,
     run_frames,
     run_stream,
     seeded_lightweight,
@@ -144,10 +160,16 @@ LIGHT_MAX_ABS, LIGHT_MEAN_ABS = 2e-2, 1.5e-8
 PLANAR_BODY_REL = 2.4e-2
 
 
-def conv_chain_int8_plain_op(x, qchain, out_cout, out_dtype=None):
+def conv_chain_int8_plain_op(x, qchain, out_cout, out_dtype=None, packed=None):
     """``conv_chain_int8_plain`` under ``ops.conv_chain_int8_apply``'s signature."""
     qlayers, s_in, acts = qchain
     return conv_chain_int8.conv_chain_int8_plain(x, qlayers, s_in, acts, out_cout, out_dtype)
+
+
+def rdb_chain_int8_plain_op(x, qchain, out_dtype=None, int32_taps=None, dx_major=None,
+                            packed=None):
+    """``rdb_chain_int8_plain`` under ``ops.rdb_chain_int8_apply``'s signature."""
+    return rdb_int8.rdb_chain_int8_plain(x, qchain, out_dtype, int32_taps, dx_major)
 
 
 KERNELS = {  # name -> (source, TPU kernel it replaces, plain version)
@@ -165,7 +187,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, plain version)
     "conv_chain_int8": ("nerve_tpu_torch/csrc/conv_int8.cu",
                         "nerve_tpu/ops/conv_chain_int8.py:135", conv_chain_int8_plain_op),
     "rdb_int8": ("nerve_tpu_torch/csrc/rdb_int8.cu", "nerve_tpu/ops/rdb_int8.py:245",
-                 rdb_int8.rdb_chain_int8_plain),
+                 rdb_chain_int8_plain_op),
+    # The int8 paths' input quantisation: an XLA fusion in the JAX package.
+    "quantize_i8": ("nerve_tpu_torch/csrc/quantize_i8.cu", "nerve_tpu/ops/conv_chain_int8.py:284",
+                    conv_chain_int8.quantize_into_plain),
     # The diagnostic paths' kernels (phase 6).
     "rdb_int8_int32_taps": ("nerve_tpu_torch/csrc/conv_int8.cu",
                             "nerve_tpu/ops/rdb_int8.py:245", rdb_int8.rdb_chain_int8_plain),
@@ -226,32 +251,43 @@ def rdb_ops(plist, npix: int) -> int:
                for params in plist for p in params if p.ndim > 1)
 
 
+# Dense-convolution kernels -> (their warpgroup product, the mma.sync product
+# they must not issue), as cuobjdump -sass names them.
+SASS_PRODUCTS = {"conv_wgmma_kernel": ("HGMMA", "HMMA"),
+                 "conv_i8_wgmma_kernel": ("IGMMA", "IMMA")}
+
+
 def check_sass(lib: Path) -> None:
-    """The bf16 dense-convolution kernels (``conv_wgmma_kernel<K, N>``) must
-    issue warpgroup products (``HGMMA``) and no ``mma.sync`` (``HMMA``):
-    print each one's count and its ptxas registers and spills."""
+    """The dense-convolution kernels (``conv_wgmma_kernel<K, N>``, bf16;
+    ``conv_i8_wgmma_kernel<K, N, MODE>``, int8) must issue warpgroup
+    products and no ``mma.sync`` products (``SASS_PRODUCTS``): print each
+    instance's counts and its ptxas registers and spills."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    counts, name = {}, None
+    counts, name, kernel = {}, None, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-        elif name and "conv_wgmma_kernel" in name:
-            c = counts.setdefault(name, [0, 0])
-            c[0] += "HGMMA" in line
-            c[1] += re.search(r"\bHMMA\b", line) is not None
+            kernel = next((k for k in SASS_PRODUCTS if re.search(rf"\d{k}I", name)), None)
+        elif kernel:
+            gmma, mma = SASS_PRODUCTS[kernel]
+            c = counts.setdefault(name, [kernel, 0, 0])
+            c[1] += re.search(rf"\b{gmma}\b", line) is not None
+            c[2] += re.search(rf"\b{mma}\b", line) is not None
     log = lib.with_suffix(".log").read_text().splitlines()
-    for name, (hgmma, hmma) in sorted(counts.items()):
-        k, n = re.search(r"ILi(\d+)ELi(\d+)E", name).groups()
+    for name, (kernel, gmma, mma) in sorted(counts.items()):
+        args = ", ".join(re.findall(r"Li(\d+)E", name))
         usage = dict.fromkeys(u.split(":", 1)[-1].strip() for i, line in enumerate(log)
                               if "Compiling entry function" in line and name in line
                               for u in log[i + 1:i + 5] if "spill" in u or "Used" in u)
-        print(f"sass conv_wgmma_kernel<{k}, {n}>: {hgmma} HGMMA, {hmma} HMMA; "
-              f"{'; '.join(usage)}", flush=True)
-    if not counts or any(hgmma == 0 or hmma for hgmma, hmma in counts.values()):
-        raise AssertionError(f"the bf16 conv kernels do not run on wgmma alone: {counts}")
+        print(f"sass {kernel}<{args}>: {gmma} {SASS_PRODUCTS[kernel][0]}, {mma} "
+              f"{SASS_PRODUCTS[kernel][1]}; {'; '.join(usage)}", flush=True)
+    found = {kernel for kernel, *_ in counts.values()}
+    if found != set(SASS_PRODUCTS) or any(gmma == 0 or mma for _k, gmma, mma in counts.values()):
+        raise AssertionError(f"the dense conv kernels do not run on warpgroup products alone: "
+                             f"{counts}")
 
 
 # --------------------------------------------------------------------------- #
@@ -340,8 +376,12 @@ def bf16_kernel_cases(dev, dt, serving: bool):
 
 
 def int8_kernel_cases(dev, dt, serving: bool):
-    """name -> (label, kernel call, plain call, limit, work): each chain and
-    the RDB stack calibrated on its own input."""
+    """name -> (label, kernel call, plain call, limit, work, library call):
+    each chain and the RDB stack calibrated on its own input, every case
+    bit-exact (limit 0); at the small shapes also the RDB in its three tap
+    schedules over many tiles per block at a ragged shape (cin not a
+    multiple of the 32-channel chunk), and the input quantisation on ties
+    and values past ±127."""
     g = torch.Generator().manual_seed(8)
     if serving:
         sites = serving_inputs(g, dev, dt)
@@ -355,37 +395,83 @@ def int8_kernel_cases(dev, dt, serving: bool):
         xr = _randn(g, (1, 10, 33, 16), 0.5).to(dev, dt)
         plist = [_common.rdb_params(g, 16, dev, torch.float32) for _ in range(2)]
         label = "small ragged"
-    qsites, chain_limit, chain_bytes = [], 0.0, 0
+    qsites, chain_bytes = [], 0
     for xx, p in sites:
         scales = conv_chain_int8.calibrate_conv_chain(xx, p)
         qchain = conv_chain_int8.quantize_conv_chain(p, scales)
         cout = p[-1][0].shape[-1]
-        qsites.append((xx, qchain, cout))
-        chain_limit = max(chain_limit, 2 * scales.max().item())
+        qsites.append((xx, qchain, cout, conv_chain_int8.packed_chain(qchain[0], cout)))
         chain_bytes += (nbytes(*(xx if isinstance(xx, list) else [xx]),
                                *(t for layer in qchain[0] for t in layer))
                         + pixels(xx) * cout * dt.itemsize)
     rscales = rdb_int8.calibrate_rdb_chain(xr, plist)
     qrdb = rdb_int8.quantize_rdb_chain(plist, rscales)
+    prdb = rdb_int8.packed_rdb_chain(qrdb)
     rdb_bytes = 2 * nbytes(xr) + nbytes(*(t for wq, dq, meta in qrdb for t in (*wq, dq, meta)))
 
     def chains(fn):
-        return lambda: [fn(xx, q, cout, dt) for xx, q, cout in qsites]
+        return lambda: [fn(xx, q, cout, dt, packed=pk) for xx, q, cout, pk in qsites]
 
-    return {
+    # The attention site's three 64-channel frames (the serving shape), or
+    # ragged parts holding values at and next to (k + 0.5)·s, some of which
+    # round otherwise under x · (1 / s) than under x / s, and values past
+    # ±127·s.
+    s_q = torch.tensor(0.3 if not serving else 0.05, device=dev)
+    if serving:
+        qparts = sites[2][0]
+    else:
+        qparts = []
+        for c in (3, 16, 9):
+            v = _randn(g, (2, 7, 11, c), 60.0)
+            ties = (torch.randint(-140, 140, v.shape, generator=g) + 0.5) * 0.3
+            r = torch.rand(v.shape, generator=g)
+            ties = torch.where(r < 0.2, ties, torch.nextafter(ties, torch.where(
+                r < 0.35, torch.tensor(float("inf")), torch.tensor(float("-inf")))))
+            qparts.append(torch.where(r < 0.5, ties, v).to(dev, dt))
+    qc = sum(t.shape[-1] for t in qparts)
+    qbufs = [torch.empty((*qparts[0].shape[:3], -(-qc // 16) * 16), dtype=torch.int8,
+                         device=dev) for _ in range(2)]
+    cases = {
         "conv_chain_int8": (label, chains(ops.conv_chain_int8_apply),
-                            chains(conv_chain_int8_plain_op), chain_limit,
+                            chains(conv_chain_int8_plain_op), 0.0,
                             bound(sum(chain_ops(p, pixels(xx)) for xx, p in sites), chain_bytes,
-                                  "int8")),
-        "rdb_int8": (label, lambda: ops.rdb_chain_int8_apply(xr, qrdb),
-                     lambda: rdb_int8.rdb_chain_int8_plain(xr, qrdb), 4 * rscales.max().item(),
-                     bound(rdb_ops(plist, pixels(xr)), rdb_bytes, "int8")),
-        # Each block alone with float32 output: the JAX package's 1e-4 level.
+                                  "int8"),
+                            int_mm_yardstick([s for xx, p in sites
+                                              for s in int8_layer_shapes(xx, p)], dev)),
+        "rdb_int8": (label, lambda: ops.rdb_chain_int8_apply(xr, qrdb, packed=prdb),
+                     lambda: rdb_int8.rdb_chain_int8_plain(xr, qrdb), 0.0,
+                     bound(rdb_ops(plist, pixels(xr)), rdb_bytes, "int8"),
+                     int_mm_yardstick(rdb_int8_shapes(pixels(xr), xr.shape[-1]), dev,
+                                      repeat=len(plist))),
+        # Each block alone with float32 output.
         "rdb_int8 block f32": (label, lambda: [ops.rdb_chain_int8_apply(
-            xr.float(), (blk,), out_dtype=torch.float32) for blk in qrdb[:2]],
+            xr.float(), (blk,), out_dtype=torch.float32, packed=prdb[k:k + 1])
+            for k, blk in enumerate(qrdb[:2])],
             lambda: [rdb_int8.rdb_chain_int8_plain(xr.float(), (blk,), torch.float32)
-                     for blk in qrdb[:2]], 1e-4, None),
+                     for blk in qrdb[:2]], 0.0, None, None),
+        "quantize_i8": (f"{label}: {len(qparts)} parts, {qc} channels",
+                        lambda: conv_chain_int8.quantize_into(qparts, s_q, qbufs[0],
+                                                              qbufs[0].shape[-1]),
+                        lambda: conv_chain_int8.quantize_into_plain(qparts, s_q, qbufs[1],
+                                                                    qbufs[1].shape[-1]),
+                        0.0, bound(0, nbytes(*qparts) + qbufs[0].numel(), "int8"), None),
     }
+    if not serving:
+        # Many tiles per block (the ping-pong rings turn over many times) at
+        # ragged H, W and cin = 40 + 32 i, in each tap schedule.
+        xm = _randn(g, (2, 131, 517, 40), 0.5).to(dev, dt)
+        pm = [_common.rdb_params(g, 40, dev, torch.float32) for _ in range(2)]
+        sm = rdb_int8.calibrate_rdb_chain(xm.float(), pm)
+        for scheme, it, dx in (("per_column", False, False), ("per_column_dx", False, True),
+                               ("int32_taps", True, False)):
+            q = rdb_int8.quantize_rdb_chain(pm, sm, per_channel=it)
+            pq = rdb_int8.packed_rdb_chain(q, it)
+            cases[f"rdb_int8 many tiles {scheme}"] = (
+                "ragged 2x131x517x40", lambda q=q, it=it, dx=dx, pq=pq: ops.rdb_chain_int8_apply(
+                    xm, q, None, it, dx, pq),
+                lambda q=q, it=it, dx=dx: rdb_int8.rdb_chain_int8_plain(xm, q, None, it, dx),
+                0.0, None, None)
+    return cases
 
 
 def _as_list(y):
@@ -430,14 +516,18 @@ def check_kernels(dev) -> dict:
                                      "library_ms": median_ms(lib) if lib else None}
         # The int8 kernels take the model's bf16 activations at the serving shapes.
         for dt in (torch.bfloat16,) if serving else (torch.float32, torch.bfloat16):
-            for name, (label, kern, plain, lim, work) in int8_kernel_cases(dev, dt, serving).items():
+            for name, (label, kern, plain, lim, work, lib) in int8_kernel_cases(
+                    dev, dt, serving).items():
                 err, _n, ms, pms = compare(name, label, dt, kern, plain, lim)
                 if serving and work is not None:
                     summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
                                      "bound_ms": work[0], "bound_by": work[1],
-                                     "library_ms": None}
+                                     "library_ms": median_ms(lib) if lib else None}
+                    torch.cuda.empty_cache()
     for name, s in summary.items():
         lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.3f} ms"
+        if name.startswith(("conv_chain_int8", "rdb_int8")) and s["library_ms"] is not None:
+            lib += " (torch._int_mm, products only)"
         print(f"bound {name:16s} {s['bound_ms']:.3f} ms ({s['bound_by']}), kernel "
               f"{s['ms']:.3f} ms: {s['bound_ms'] / s['ms']:.3f} of the bound; library {lib}",
               flush=True)
@@ -475,11 +565,15 @@ def diag_kernel_cases(dev, dt, serving: bool):
     cases = {}
     # Both schedules are bit-exact: the same int32 sums, the same float32
     # operations in the same order.
+    # The per-column schedule's products, as torch._int_mm computes them.
+    int_mm = int_mm_yardstick(rdb_int8_shapes(pixels(xr), xr.shape[-1]), dev, repeat=len(plist))
     for name, q, it, dx in (("rdb_int8_int32_taps", qpc, True, False),
                             ("rdb_int8 per_column_dx", qcol, False, True)):
-        cases[name] = (label, lambda q=q, it=it, dx=dx: ops.rdb_chain_int8_apply(xr, q, None, it, dx),
+        pq = rdb_int8.packed_rdb_chain(q, it)
+        cases[name] = (label, lambda q=q, it=it, dx=dx, pq=pq: ops.rdb_chain_int8_apply(
+                           xr, q, None, it, dx, pq),
                        lambda q=q, it=it, dx=dx: rdb_int8.rdb_chain_int8_plain(xr, q, None, it, dx),
-                       0.0, False, None, int8_work, None)
+                       0.0, False, int_mm, int8_work, None)
     taps_work = bound(rdb_ops([block], pixels(xb)), 2 * nbytes(xb) + nbytes(*block), "bf16")
     lim = BF16_LIMITS["rdb"][dt == torch.bfloat16]
     for mode in modes:
@@ -584,7 +678,7 @@ def against_plain(model, video, outs, max_abs, mean_abs, run=run_stream):
 def run_slice(model, video, card: str):
     outs, times, launches, peak = drive(model, video, ("d2s_packed", "correlation",
                                                        "conv_chain", "rdb"),
-                                        ("conv_chain_int8", "rdb_int8"))
+                                        ("conv_chain_int8", "rdb_int8", "quantize_i8"))
     ptimes = against_plain(model, video, outs, SLICE_MAX_ABS, SLICE_MEAN_ABS)
     print(f"slice 1080p->2160p bf16 packed: {statistics.median(times):.1f} ms/frame with "
           f"kernels, {statistics.median(ptimes):.1f} ms/frame plain (median of {len(times)} "
@@ -609,9 +703,22 @@ def run_int8_slice(model, video, bf16_outs, beside, card: str):
     scheme = "per-channel int32_taps" if rdb_int8.PER_CHANNEL_INT8 else "per-column"
     int32 = ("rdb_int8_int32_taps",)
     outs, times, launches, peak = drive(
-        model, video, ("d2s_packed", "correlation", "conv_chain_int8", "rdb_int8")
+        model, video, ("d2s_packed", "correlation", "conv_chain_int8", "rdb_int8", "quantize_i8")
         + (int32 if rdb_int8.PER_CHANNEL_INT8 else ()),
         ("conv_chain", "rdb") + (() if rdb_int8.PER_CHANNEL_INT8 else int32))
+    # Per step five chain sites (10 layers) and the RDB stack (8 blocks),
+    # each quantising its input once; the prime runs the head once more.
+    steps = len(video) - 1
+    want = {"conv_chain_int8": 10 * steps + 1, "rdb_int8": 8 * steps,
+            "quantize_i8": 6 * steps + 1}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"int8 slice launches {launches}, expected {want}")
+    # Each int8 state (five chain sites, the RDB stack) packs its weights at
+    # its first call and keeps them: a frame after the first packs none.
+    packs = dispatch.packs["int8"]
+    print(f"int8 weight packs over {steps} steps: {packs} (one per int8 state)", flush=True)
+    if packs != 6:
+        raise AssertionError(f"the int8 slice packed weights {packs} times, expected 6")
     ptimes = against_plain(model, video, outs, INT8_MAX_ABS, INT8_MEAN_ABS)
     db = min(psnr(a, b) for a, b in zip(outs, bf16_outs))
     print(f"int8 {scheme} slice vs bf16 slice: PSNR {db:.2f} dB (least over {len(outs)} "
@@ -669,7 +776,8 @@ def run_lightweight_slice(dev, video, card: str):
     nframes = len(video)
     outs, times, launches, peak = drive(
         model, video, ("conv_chain", "conv_chain_dw3", "d2s_packed"),
-        ("correlation", "rdb", "conv_chain_int8", "rdb_int8", "planar_chain"), run_frames)
+        ("correlation", "rdb", "conv_chain_int8", "rdb_int8", "planar_chain", "quantize_i8"),
+        run_frames)
     want = {"conv_chain": 6 * nframes, "conv_chain_dw3": 4 * nframes, "d2s_packed": nframes}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"lightweight launches {launches}, expected {want}")
@@ -701,7 +809,10 @@ def run_per_channel_int8_slice(dev, video, bf16_outs, int8_ms, card: str):
     saved = rdb_int8.PER_CHANNEL_INT8
     rdb_int8.PER_CHANNEL_INT8 = True
     try:
-        model = seeded_model(dev, seed=0, quantized=True, quantized_chains=True)
+        # Built inside inference mode, as serving code may build it: its int8
+        # state still packs once.
+        with torch.inference_mode():
+            model = seeded_model(dev, seed=0, quantized=True, quantized_chains=True)
         launches, _ms = run_int8_slice(model, video, bf16_outs,
                                        ("int8 per-column", int8_ms), card)
     finally:
@@ -840,7 +951,7 @@ def main() -> int:
                      "lightweight": lambda frame: light_model(frame, "packed")},
                     video, Path(args.profile))
     # Each kernel's launches from the run of the path that carries it.
-    runs = {"conv_chain_int8": launches8, "rdb_int8": launches8,
+    runs = {"conv_chain_int8": launches8, "rdb_int8": launches8, "quantize_i8": launches8,
             "conv_chain_dw3": launches_lw, "planar_chain": launches_planar,
             "rdb_int8_int32_taps": launches8pc, "rdb_taps": launches_rdb,
             "d2s_packed_planar": launches_d2s, "probe": launches_probe}

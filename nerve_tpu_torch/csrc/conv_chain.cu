@@ -251,58 +251,15 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the runtime's
-// entry-point query, so that the library needs no link against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f) : nullptr;
-  }();
-  return fn;
-}
-
-struct DeviceLimits {
-  int sms, smem;
-};
-
-cudaError_t device_limits(DeviceLimits& lim) {
-  static DeviceLimits cache[64] = {};
-  int dev;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (cache[dev].sms == 0) {
-    DeviceLimits d;
-    err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&d.smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return err;
-    cache[dev] = d;
-  }
-  lim = cache[dev];
-  return cudaSuccess;
-}
-
 template <int K, int NT>
 cudaError_t launch_wgmma_cfg(const void* const* xs, int nx, int xcs, int cin, const void* w,
                              const float* bias, void* out, int ocs, int ocoff, int cout, int b,
                              int h, int wd, int relu, cudaStream_t stream) {
   using C = Cfg<K, NT>;
-  DeviceLimits lim;
-  cudaError_t err = device_limits(lim);
+  NtDeviceLimits lim;
+  cudaError_t err = nt_device_limits(lim);
   if (err != cudaSuccess) return err;
-  const EncodeTiled encode = encode_tiled();
+  const NtEncodeTiled encode = nt_encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
 
   WgParams p;

@@ -21,221 +21,416 @@
 //   * NT_TAPS_DX: the same per-tap epilogue with dx as the outer loop
 //     (`DX_MAJOR_INT8`);
 //   * NT_TAPS_INT32: per-channel scales (`PER_CHANNEL_INT8`, `int32_taps`):
-//     the nine taps' int32 sums add in int32 (|sum| <= 127^2 * 9 * K, below
-//     2^31 for any K the shared memory holds) and the layer dequantises
-//     once, f32(int32) * dq[n], before the bias. The tensor cores' int32
-//     accumulator then runs over every tap and channel, and the epilogue
-//     is one multiply instead of nine multiply-round-adds.
+//     the nine taps' int32 sums add in int32 (|sum| <= 127^2 * 9 * cin,
+//     below 2^31 for cin < 14,000) and the layer dequantises once,
+//     f32(int32) * dq[n], before the bias.
 //
 // Bound: neither side by much. A dense layer does 18 * cin * cout int8
 // operations per pixel for cin + cout bytes of int8 in and out: 384 to 494
 // operations a byte on the RDB's layers and up to 893 on the chains', about
 // the card's balance point of 590 (1,979 TOPS dense int8 over 3.35 TB/s), so
-// an RDB layer's floor at 1080p is 0.06-0.14 ms either way. The design aims
-// at the arithmetic first, and at reading each input byte once per
-// output-channel slice (one slice for the RDB's 32-wide layers). A block
-// computes an 8 x 32 pixel tile for a 32- or 16-wide slice of output
-// channels. The whole haloed input tile
-// (every input channel) sits in shared memory, since each tap's int32 sum
-// must be complete before it is dequantised; the weights of one tap are
-// staged per tap. Each warp owns one tile row (two 16-pixel m-tiles) and
-// runs mma.sync.m16n8k32 (s8 x s8 -> s32) over 32-channel steps, its
-// operands fetched with ldmatrix from rows padded to an odd multiple of 16
-// bytes (conflict-free). What the simple design gives up: wgmma and TMA,
-// overlap of the next tap's weight loads with this tap's math, and keeping
-// a chain's intermediates on chip (each layer round-trips device memory,
-// in int8).
+// an RDB layer's floor at 1080p is 0.06-0.14 ms either way.
+//
+// The design is the bf16 layer's (conv_chain.cu) on Hopper's integer
+// warpgroup products, byte for byte:
+//   * M is output pixels, one 64-pixel row of a tile per wgmma; N the output
+//     channels in a tile of 8, 16 or 32; K the 9 (or 1) taps x cin in
+//     32-channel chunks (wgmma.m64nNk32.s32.s8.s8, both operands K-major
+//     from shared memory through descriptors, int32 sums in registers).
+//   * 32 int8 channels are one 32-byte row per pixel, as 16 bf16 channels
+//     are, so the input is staged as the bf16 kernel stages it: TMA from a
+//     4-D tensor map (B, H, W, C) of bytes, one 32-channel box of the haloed
+//     tile per stage in the 32-byte swizzle; TMA's zero fill is the SAME
+//     padding, the ragged edges and the channels past cin; the tap (ky, kx)
+//     is A's start address ky rows and kx pixels further on. One producer
+//     thread keeps a ring per consumer warpgroup full; two consumer
+//     warpgroups take every other tile of a persistent block's walk
+//     (ping-pong), so that one's epilogue runs beside the other's products.
+//   * Weights: the B descriptor's image, [n-tile][chunk][tap][k half][n / 8]
+//     [n % 8][k % 16], packed once per quantised layer by
+//     ops/conv_chain_int8.py `pack_i8_weights` (int8 weights do not change
+//     after calibration), resident in shared memory where they fit beside
+//     two stages per ring, else streamed with each chunk.
+//   * The numerics decide the accumulator layout. The per-tap schedules
+//     (NT_TAPS_DY, NT_TAPS_DX) dequantise each tap's complete int32 sum, so
+//     a consumer holds nine accumulator sets, one per tap, walks the chunks
+//     outer and the nine taps (nine start addresses in one staged chunk)
+//     inner, and dequantises the nine sets in the schedule's tap order in the
+//     epilogue (int32 sums are exact, so the chunk order inside a tap is
+//     free). Nine sets of an m64n32 tile are 9 x 16 registers a thread, so a
+//     tile is one row (the 3x3 halo stages three) and N is at most 32: a
+//     wider layer (the flow head's 128 and 64, the attention site's 64)
+//     walks N in 32-wide tiles, the N tiles of one pixel tile adjacent in
+//     the walk so that their input reads meet in L2. That keeps one kernel
+//     shape and one walk for every layer; a tap-outer walk over a staged
+//     whole-cin tile would hold one set but wait on each tap's products
+//     before its dequantisation, and a 2-row tile of 16-wide N tiles (the
+//     same registers) measured no better. NT_TAPS_INT32 and the 1x1 layers
+//     hold one set (the taps add in the tensor core) and take 4-row tiles.
+//   * The epilogue dequantises (two taps' values rounded to bf16 in one
+//     packed conversion), adds the bias, applies relu as a floor of 0 or
+//     -inf, converts the whole row to the output type and only then stores
+//     it, two channels a thread into the output's channel slot, with the
+//     output type chosen once per row: a store behind a branch per channel
+//     pair serialised the row's conversions. The factors, biases and
+//     reciprocals of the layer sit in shared memory.
+// What the design still gives up: the per-tap epilogue (nine dequantised,
+// rounded and added values per output) is latency-bound in the 8 consumer
+// warps of an SM and takes about as long as the loads and products of a
+// 64-channel RDB layer, which it overlaps only in part; a 1-row tile stages
+// 3 rows of input; a chain's intermediates round-trip device memory in int8
+// between layers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 #include "nerve_tpu_torch.h"
 
 namespace {
 
-constexpr int TH = 8, TW = 32, NTHREADS = 32 * TH;
-constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
+constexpr int WG_TW = 64;       // output pixels of a tile row: one wgmma M
+constexpr int CONSUMERS = 2;    // consumer warpgroups; warpgroup 0 produces
+constexpr int WG_THREADS = 128 * (CONSUMERS + 1);
+constexpr int MAX_STAGES = 8;   // per consumer's ring
+constexpr int BAR_BYTES = 1024;  // the mbarriers, at the start of shared memory
+constexpr int CHUNK = 32;       // input channels per K step: one 32-byte row a pixel
+constexpr int MAX_NT = 32;      // widest N tile (nine accumulator sets of it)
 
 __host__ __device__ constexpr int ceil_to(int v, int m) { return (v + m - 1) / m * m; }
 
-// Shared-memory layout: the haloed input tile [IH*IW][ks], one tap's
-// weights [CO][ks], the dequant factors [taps][CO] (one row for
-// NT_TAPS_INT32). ks = ceil32(cin) + 16. The tap schedule is a template
-// parameter, so each schedule compiles to its own straight-line code.
-template <int K, int CO>
-__host__ __device__ constexpr int smem_bytes_for(int cin) {
-  return ((TH + K - 1) * (TW + K - 1) + CO) * (ceil_to(cin, 32) + 16) + K * K * CO * 4;
+template <int K, int NT, int MODE>
+struct Cfg {
+  static constexpr int R = K / 2;
+  // int32 accumulator sets: one per tap where each tap is dequantised alone.
+  static constexpr int SETS = (K == 3 && MODE != NT_TAPS_INT32) ? 9 : 1;
+  static constexpr int TH = SETS == 9 ? 1 : 4;  // output rows of a tile
+  static constexpr int IH = TH + 2 * R, IW = WG_TW + 2 * R;
+  // One 32-channel TMA box of the haloed tile (32 bytes a pixel, 32-byte
+  // swizzle); its place in a stage is padded to 1024 bytes.
+  static constexpr int BOX_BYTES = IH * IW * CHUNK;
+  static constexpr int IN_BYTES = ceil_to(BOX_BYTES, 1024);
+  static constexpr int W_BYTES = K * K * NT * CHUNK;  // one chunk's weights, every tap
+};
+
+struct Params {
+  int nchunks, cout, cpad, ocs, ocoff, h, w, relu, odt, pair;
+  int tiles_x, tiles_y, ncot, ntiles, resident, stages, param_bytes;
+  const uint8_t* wpack;
+  const float *dq, *bias, *inv;
+  void* out;
+};
+
+__device__ __forceinline__ void decode_tile(const Params& p, int t, int& cot, int& tx,
+                                            int& ty, int& b) {
+  cot = t % p.ncot;
+  t /= p.ncot;
+  tx = t % p.tiles_x;
+  t /= p.tiles_x;
+  ty = t % p.tiles_y;
+  b = t / p.tiles_y;
 }
 
-__device__ __forceinline__ uint4 mask_tail(uint4 v, int keep) {
-  // Zero the bytes at positions >= keep (0 < keep < 16) of a 16-byte vector.
-  alignas(16) int8_t b[16];
-  *reinterpret_cast<uint4*>(b) = v;
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    if (i >= keep) b[i] = 0;
-  return *reinterpret_cast<uint4*>(b);
+// Two taps' sums dequantised, each rounded to bf16 (one packed conversion).
+__device__ __forceinline__ float2 dequant2_bf16(int s0, int s1, float2 d) {
+  return __bfloat1622float2(__floats2bfloat162_rn(__fmul_rn(__int2float_rn(s0), d.x),
+                                                  __fmul_rn(__int2float_rn(s1), d.y)));
 }
 
-template <int K, int CO, int MODE>
-__global__ void __launch_bounds__(NTHREADS)
-    conv_i8_kernel(const int8_t* __restrict__ x, int xcs, int cin,
-                   const int8_t* __restrict__ w, const float* __restrict__ dq,
-                   const float* __restrict__ bias, const float* __restrict__ inv,
-                   void* __restrict__ out, int ocs, int ocoff, int cout, int h,
-                   int wd, int relu, int odt) {
-  constexpr int R = K / 2, IH = TH + 2 * R, IW = TW + 2 * R, NT = CO / 8, TAPS = K * K;
-  constexpr bool int32_taps = MODE == NT_TAPS_INT32;
-  static_assert(NT % 2 == 0, "CO must be a multiple of 16");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int kc = ceil_to(cin, 32), ks = kc + 16, wks = ceil_to(cin, 16);
-  int8_t* sx = reinterpret_cast<int8_t*>(smem);
-  int8_t* sw = sx + IH * IW * ks;
-  float* sdq = reinterpret_cast<float*>(sw + CO * ks);
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const int nco = (cout + CO - 1) / CO;
-  const int b = blockIdx.z / nco, co0 = (blockIdx.z % nco) * CO;
-  const long long img = (long long)b * h * wd;
-
-  // The haloed input tile, every input channel, zero outside the image and
-  // beyond cin; 16-byte moves.
-  const int nvx = kc / 16;
-  for (int i = tid; i < IH * IW * nvx; i += NTHREADS) {
-    const int v = i % nvx, pix = i / nvx, xx = pix % IW, yy = pix / IW;
-    const int gy = y0 + yy - R, gx = x0 + xx - R, gc = v * 16;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (gy >= 0 && gy < h && gx >= 0 && gx < wd && gc < cin) {
-      val = *reinterpret_cast<const uint4*>(x + (img + (long long)gy * wd + gx) * xcs + gc);
-      if (cin - gc < 16) val = mask_tail(val, cin - gc);
-    }
-    *reinterpret_cast<uint4*>(sx + pix * ks + gc) = val;
-  }
-  for (int i = tid; i < (int32_taps ? 1 : TAPS) * CO; i += NTHREADS) {
-    const int go = co0 + i % CO;
-    sdq[i] = go < cout ? dq[(i / CO) * cout + go] : 0.f;
-  }
-
-  float acc[2][NT][4];
+// One row of a tile's outputs, o[i][j][e] (pixel xb + 8 i, channel
+// co0 + 8 j + e), converted to the output type and stored. Every value is
+// converted before the first store, and the stores are predicated, so that
+// the conversions of a row overlap; a tile whose N tile is whole (`full`)
+// stores channel pairs, an edge tile channel by channel.
+template <int NT, int ODT>
+__device__ __forceinline__ void store_row(const Params& p, const float (&o)[2][NT / 8][2],
+                                          size_t pix0, bool row_ok, int xb, int co0, bool full,
+                                          const float* sinv) {
+  using T = typename std::conditional<ODT == NT_I8, int8_t,
+                                      typename std::conditional<ODT == NT_BF16, __nv_bfloat16,
+                                                                float>::type>::type;
+  T q[2][NT / 8][2];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int j = 0; j < NT / 8; ++j)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[m][n][q] = 0.f;
-
-  int iacc[2][NT][4];
-  for (int t = 0; t < TAPS; ++t) {
-    const int tap = MODE == NT_TAPS_DX ? (t % K) * K + t / K : t;
-    __syncthreads();  // the previous tap's weights are no longer read
-    for (int i = tid; i < CO * nvx; i += NTHREADS) {
-      const int v = i % nvx, n = i / nvx, go = co0 + n, gc = v * 16;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (go < cout && gc < wks)
-        val = *reinterpret_cast<const uint4*>(w + ((long long)tap * cout + go) * wks + gc);
-      *reinterpret_cast<uint4*>(sw + n * ks + gc) = val;
-    }
-    __syncthreads();
-    const int ky = tap / K, kx = tap % K;
-    if (!int32_taps || t == 0) {
+      for (int e = 0; e < 2; ++e) {
+        const float v = o[i][j][e];
+        if constexpr (ODT == NT_I8)
+          q[i][j][e] = static_cast<int8_t>(__float2int_rn(fminf(
+              fmaxf(rintf(__fmul_rn(v, sinv[co0 + 8 * j + e])), -127.f), 127.f)));
+        else if constexpr (ODT == NT_BF16)
+          q[i][j][e] = __float2bfloat16_rn(v);
+        else
+          q[i][j][e] = v;
+      }
+  T* out = static_cast<T*>(p.out) + p.ocoff;
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
+  for (int i = 0; i < 2; ++i) {
+    if (!row_ok || xb + 8 * i >= p.w) continue;
+    T* px = out + (pix0 + 8 * i) * p.ocs;
 #pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) iacc[m][n][q] = 0;
-    }
-    for (int k0 = 0; k0 < kc; k0 += 32) {
-      unsigned a[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-        nt_ldmatrix_x4(sx + ((warp + ky) * IW + m * 16 + lane % 16 + kx) * ks + k0 +
-                           (lane / 16) * 16, a[m]);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        unsigned bq[4];
-        nt_ldmatrix_x4(sw + (np * 16 + (lane / 16) * 8 + lane % 8) * ks + k0 +
-                           ((lane / 8) % 2) * 16, bq);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          nt_mma_s8(iacc[m][2 * np], a[m], bq[0], bq[1]);
-          nt_mma_s8(iacc[m][2 * np + 1], a[m], bq[2], bq[3]);
-        }
+    for (int j = 0; j < NT / 8; ++j) {
+      const int co = co0 + 8 * j;
+      if (full) {
+        if constexpr (ODT == NT_I8)
+          *reinterpret_cast<char2*>(px + co) = make_char2(q[i][j][0], q[i][j][1]);
+        else if constexpr (ODT == NT_BF16)
+          *reinterpret_cast<__nv_bfloat162*>(px + co) = __halves2bfloat162(q[i][j][0], q[i][j][1]);
+        else
+          *reinterpret_cast<float2*>(px + co) = make_float2(q[i][j][0], q[i][j][1]);
+      } else {
+        if (co < p.cout) px[co] = q[i][j][0];
+        if (co + 1 < p.cout) px[co + 1] = q[i][j][1];
       }
     }
-    if constexpr (int32_taps) continue;
-    // This tap's dequantisation: f32(int32) * dq, rounded to bf16, added.
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float d = sdq[tap * CO + n * 8 + (lane % 4) * 2 + q % 2];
-          const float tv = __bfloat162float(
-              __float2bfloat16_rn(__fmul_rn(__int2float_rn(iacc[m][n][q]), d)));
-          acc[m][n][q] = __fadd_rn(acc[m][n][q], tv);
-        }
   }
-  if constexpr (int32_taps) {
-    // The layer's one dequantisation: f32(int32 sum of nine taps) * dq[n].
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          acc[m][n][q] = __fmul_rn(__int2float_rn(iacc[m][n][q]),
-                                   sdq[n * 8 + (lane % 4) * 2 + q % 2]);
-  }
+}
 
-  const int gy = y0 + warp;
-  if (gy >= h) return;
+// The epilogue of one tile: row 16 warp + lane / 4 + 8 i of the wgmma tile
+// is pixel column xb + 8 i; a[4 j + 2 i + e] is channel co0 + 8 j + e. The
+// sets are dequantised in the schedule's tap order.
+template <int K, int NT, int MODE>
+__device__ __forceinline__ void epilogue(const Params& p,
+                                         const int (&acc)[Cfg<K, NT, MODE>::SETS *
+                                                          Cfg<K, NT, MODE>::TH][NT / 2],
+                                         int b, int ty, int xb, int cot, int co0,
+                                         const float* sdq, const float* sbias,
+                                         const float* sinv) {
+  using C = Cfg<K, NT, MODE>;
+  const bool full = p.pair && (cot + 1) * NT <= p.cout;
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int r = 0; r < C::TH; ++r) {
+    const int gy = ty * C::TH + r;
+    float v[2][NT / 8][2] = {};  // v[i][j][e]
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int gx = x0 + m * 16 + lane / 4 + hf * 8;
-      if (gx >= wd) continue;
-      const long long o = (img + (long long)gy * wd + gx) * ocs + ocoff;
+    for (int s = 0; s < C::SETS; ++s) {
+      const int tap = MODE == NT_TAPS_DX ? (s % K) * K + s / K : s;
+      const int(&a)[NT / 2] = acc[C::SETS == 9 ? tap : r];
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
+      for (int j = 0; j < NT / 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(&sdq[tap * p.cpad + co0 + 8 * j]);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int go = co0 + n * 8 + (lane % 4) * 2 + j;
-          if (go >= cout) continue;
-          float v = __fadd_rn(acc[m][n][hf * 2 + j], bias[go]);
-          if (relu) v = fmaxf(v, 0.f);
-          if (odt == NT_I8) {
-            const float q = fminf(fmaxf(rintf(__fmul_rn(v, inv[go])), -127.f), 127.f);
-            static_cast<int8_t*>(out)[o + go] = static_cast<int8_t>(__float2int_rn(q));
-          } else if (odt == NT_BF16) {
-            static_cast<__nv_bfloat16*>(out)[o + go] = __float2bfloat16_rn(v);
+        for (int i = 0; i < 2; ++i) {
+          if constexpr (MODE == NT_TAPS_INT32) {
+            v[i][j][0] = __fmul_rn(__int2float_rn(a[4 * j + 2 * i]), d.x);
+            v[i][j][1] = __fmul_rn(__int2float_rn(a[4 * j + 2 * i + 1]), d.y);
           } else {
-            static_cast<float*>(out)[o + go] = v;
+            const float2 y = dequant2_bf16(a[4 * j + 2 * i], a[4 * j + 2 * i + 1], d);
+            v[i][j][0] = __fadd_rn(v[i][j][0], y.x);
+            v[i][j][1] = __fadd_rn(v[i][j][1], y.y);
           }
         }
       }
     }
+    // Bias and relu (a floor of 0 or -inf, so that no branch splits the row).
+    const float lo = p.relu ? 0.f : __int_as_float(0xff800000);  // 0 or -inf
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      const float2 bias = *reinterpret_cast<const float2*>(&sbias[co0 + 8 * j]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        v[i][j][0] = fmaxf(__fadd_rn(v[i][j][0], bias.x), lo);
+        v[i][j][1] = fmaxf(__fadd_rn(v[i][j][1], bias.y), lo);
+      }
+    }
+    const size_t pix0 = (size_t)(b * p.h + gy) * p.w + xb;
+    const bool row_ok = gy < p.h;
+    if (p.odt == NT_I8)
+      store_row<NT, NT_I8>(p, v, pix0, row_ok, xb, co0, full, sinv);
+    else if (p.odt == NT_BF16)
+      store_row<NT, NT_BF16>(p, v, pix0, row_ok, xb, co0, full, sinv);
+    else
+      store_row<NT, NT_F32>(p, v, pix0, row_ok, xb, co0, full, sinv);
   }
 }
 
-template <int K, int CO, int MODE>
+template <int K, int NT, int MODE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    conv_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
+  using C = Cfg<K, NT, MODE>;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  // Each consumer warpgroup has a ring of p.stages stages of its own.
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + CONSUMERS * MAX_STAGES;
+  uint64_t* wbar = empty + CONSUMERS * MAX_STAGES;
+  // The layer's factors: dq [SETS][cpad], bias [cpad], 1 / s_out [cpad].
+  float* sdq = reinterpret_cast<float*>(smem + BAR_BYTES);
+  float* sbias = sdq + C::SETS * p.cpad;
+  float* sinv = sbias + p.cpad;
+  uint8_t* wres = smem + BAR_BYTES + p.param_bytes;
+  const int wres_bytes = p.resident ? p.nchunks * C::W_BYTES : 0;
+  uint8_t* ring = wres + ceil_to(wres_bytes, 1024);
+  const int stage_bytes = ceil_to(C::IN_BYTES + (p.resident ? 0 : C::W_BYTES), 1024);
+  const int tid = threadIdx.x, wg = tid / 128;
+
+  if (tid == 0) {
+    for (int s = 0; s < CONSUMERS * p.stages; ++s) {
+      nt_mbar_init(&full[s], 1);
+      nt_mbar_init(&empty[s], 4);
+    }
+    nt_mbar_init(wbar, 1);
+    nt_fence_mbar_init();
+  }
+  for (int i = tid; i < C::SETS * p.cpad; i += WG_THREADS) {
+    const int row = i / p.cpad, co = i % p.cpad;
+    sdq[i] = co < p.cout ? p.dq[row * p.cout + co] : 0.f;
+  }
+  for (int co = tid; co < p.cpad; co += WG_THREADS) {
+    sbias[co] = co < p.cout ? p.bias[co] : 0.f;
+    sinv[co] = co < p.cout ? p.inv[co] : 0.f;
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer: one thread issues every copy.
+    nt_setmaxnreg_dec<40>();
+    if (tid != 0) return;
+    if (p.resident) {
+      nt_mbar_expect_tx(wbar, wres_bytes);
+      for (int c = 0; c < p.nchunks; ++c)
+        nt_bulk_load(wres + c * C::W_BYTES, p.wpack + (size_t)c * C::W_BYTES, C::W_BYTES, wbar);
+    }
+    int rstage[CONSUMERS] = {}, rphase[CONSUMERS] = {};
+    for (int t = blockIdx.x, k = 0; t < p.ntiles; t += gridDim.x, ++k) {
+      int cot, tx, ty, b;
+      decode_tile(p, t, cot, tx, ty, b);
+      const int x0 = tx * WG_TW - C::R, y0 = ty * C::TH - C::R;
+      const int ring_id = k % CONSUMERS;  // tile k of the walk is warpgroup k % 2's
+      for (int c = 0; c < p.nchunks; ++c) {
+        int& phase = rphase[ring_id];
+        const int stage = ring_id * p.stages + rstage[ring_id];
+        nt_mbar_wait(&empty[stage], phase ^ 1);
+        nt_mbar_expect_tx(&full[stage], C::BOX_BYTES + (p.resident ? 0 : C::W_BYTES));
+        uint8_t* st = ring + stage * stage_bytes;
+        nt_tma_load_4d(st, &map, &full[stage], c * CHUNK, x0, y0, b);
+        if (!p.resident)
+          nt_bulk_load(st + C::IN_BYTES, p.wpack + ((size_t)cot * p.nchunks + c) * C::W_BYTES,
+                       C::W_BYTES, &full[stage]);
+        if (++rstage[ring_id] == p.stages) {
+          rstage[ring_id] = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup cw takes every other tile of the block's walk
+  // from its own ring, so that one's epilogue runs beside the other's
+  // products.
+  nt_setmaxnreg_inc<232>();
+  const int cw = wg - 1, warp = (tid % 128) / 32, lane = tid % 32;
+  // acc[SETS * TH]: tap t's set (SETS = 9, TH = 1) or row r's (SETS = 1).
+  int acc[C::SETS * C::TH][NT / 2] = {};
+  if (p.resident) nt_mbar_wait(wbar, 0);
+  // A stage is handed back once the products that read it are done: one
+  // chunk later, so that this chunk's products queue behind the last's.
+  int stage = cw * p.stages, phase = 0, held = -1;
+  for (int t = blockIdx.x + cw * gridDim.x; t < p.ntiles; t += CONSUMERS * gridDim.x) {
+    int cot, tx, ty, b;
+    decode_tile(p, t, cot, tx, ty, b);
+    for (int c = 0; c < p.nchunks; ++c) {
+      nt_mbar_wait(&full[stage], phase);
+      __syncwarp();
+      const unsigned in = nt_smem_addr(ring + stage * stage_bytes);
+      const unsigned wb = p.resident ? nt_smem_addr(wres + c * C::W_BYTES) : in + C::IN_BYTES;
+      nt_wgmma_fence();
+#pragma unroll
+      for (int tap = 0; tap < K * K; ++tap) {
+        const uint64_t db = nt_wgmma_desc(wb + tap * NT * CHUNK, NT * 16, 128);
+#pragma unroll
+        for (int r = 0; r < C::TH; ++r) {
+          const int row = r + tap / K;
+          const uint64_t da = nt_wgmma_desc_sw32(in + (row * C::IW + tap % K) * CHUNK);
+          if constexpr (C::SETS == 9)
+            nt_wgmma_s8<NT>(acc[tap], da, db, c > 0);
+          else
+            nt_wgmma_s8<NT>(acc[r], da, db, c > 0 || tap > 0);
+        }
+      }
+      nt_wgmma_commit();
+      nt_wgmma_wait<1>();
+      if (held >= 0 && lane == 0) nt_mbar_arrive(&empty[held]);
+      held = stage;
+      if (++stage == (cw + 1) * p.stages) {
+        stage = cw * p.stages;
+        phase ^= 1;
+      }
+    }
+    nt_wgmma_wait<0>();
+    if (lane == 0) nt_mbar_arrive(&empty[held]);
+    held = -1;
+    epilogue<K, NT, MODE>(p, acc, b, ty, tx * WG_TW + warp * 16 + lane / 4, cot,
+                          cot * NT + 2 * (lane % 4), sdq, sbias, sinv);
+  }
+}
+
+template <int K, int NT, int MODE>
 cudaError_t launch_cfg(const void* x, int xcs, int cin, const void* w, const float* dq,
-                       const float* bias, const float* inv, void* out, int ocs,
-                       int ocoff, int cout, int b, int h, int wd, int relu, int odt,
-                       cudaStream_t stream) {
-  const int smem = smem_bytes_for<K, CO>(cin);
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(conv_i8_kernel<K, CO, MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                       const float* bias, const float* inv, void* out, int ocs, int ocoff,
+                       int cout, int b, int h, int wd, int relu, int odt, cudaStream_t stream) {
+  using C = Cfg<K, NT, MODE>;
+  NtDeviceLimits lim;
+  cudaError_t err = nt_device_limits(lim);
   if (err != cudaSuccess) return err;
-  const int nco = (cout + CO - 1) / CO;
-  const dim3 grid((wd + TW - 1) / TW, (h + TH - 1) / TH, b * nco);
-  conv_i8_kernel<K, CO, MODE><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const int8_t*>(x), xcs, cin, static_cast<const int8_t*>(w), dq, bias, inv,
-      out, ocs, ocoff, cout, h, wd, relu, odt);
+  const NtEncodeTiled encode = nt_encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+
+  Params p;
+  p.nchunks = (cin + CHUNK - 1) / CHUNK;
+  p.cout = cout;
+  p.ncot = (cout + NT - 1) / NT;
+  p.cpad = p.ncot * NT;
+  p.ocs = ocs;
+  p.ocoff = ocoff;
+  p.h = h;
+  p.w = wd;
+  p.relu = relu;
+  p.odt = odt;
+  const int esize = odt == NT_I8 ? 1 : odt == NT_BF16 ? 2 : 4;
+  p.pair = ocs % 2 == 0 && ocoff % 2 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * esize) == 0;
+  p.tiles_x = (wd + WG_TW - 1) / WG_TW;
+  p.tiles_y = (h + C::TH - 1) / C::TH;
+  const long long ntiles = (long long)b * p.tiles_y * p.tiles_x * p.ncot;
+  if (ntiles > INT32_MAX) return cudaErrorInvalidValue;
+  p.ntiles = (int)ntiles;
+  p.param_bytes = ceil_to((C::SETS + 2) * p.cpad * 4, 1024);
+  p.wpack = static_cast<const uint8_t*>(w);
+  p.dq = dq;
+  p.bias = bias;
+  p.inv = inv;
+  p.out = out;
+
+  // The weights stay resident where they fit beside two stages of each ring.
+  const int avail = lim.smem - BAR_BYTES - p.param_bytes;
+  const int wbytes = ceil_to(p.nchunks * C::W_BYTES, 1024);
+  p.resident = p.ncot == 1 && wbytes + 2 * CONSUMERS * C::IN_BYTES <= avail;
+  const int stage_bytes = ceil_to(C::IN_BYTES + (p.resident ? 0 : C::W_BYTES), 1024);
+  p.stages = std::min(MAX_STAGES, (avail - (p.resident ? wbytes : 0)) / (CONSUMERS * stage_bytes));
+  if (p.stages < 2) return cudaErrorInvalidValue;
+  const int smem = BAR_BYTES + p.param_bytes + (p.resident ? wbytes : 0) +
+                   CONSUMERS * p.stages * stage_bytes;
+
+  // (C, W, H, B) bytes, innermost first; a box is one 32-channel chunk of
+  // the haloed tile, 32-byte rows in the 32-byte swizzle. Channels from
+  // cin on read as zeros.
+  CUtensorMap map;
+  const cuuint64_t dims[4] = {(cuuint64_t)cin, (cuuint64_t)wd, (cuuint64_t)h, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)xcs, (cuuint64_t)wd * xcs, (cuuint64_t)h * wd * xcs};
+  const cuuint32_t box[4] = {CHUNK, C::IW, C::IH, 1}, estr[4] = {1, 1, 1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x), dims, strides, box,
+             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(conv_i8_wgmma_kernel<K, NT, MODE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, lim.smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (int)std::min<long long>(ntiles, lim.sms);
+  conv_i8_wgmma_kernel<K, NT, MODE><<<grid, WG_THREADS, smem, stream>>>(map, p);
   return cudaGetLastError();
 }
 
@@ -243,13 +438,15 @@ template <int K, int MODE>
 cudaError_t launch_k(const void* x, int xcs, int cin, const void* w, const float* dq,
                      const float* bias, const float* inv, void* out, int ocs, int ocoff,
                      int cout, int b, int h, int wd, int relu, int odt, cudaStream_t st) {
-  // The output-channel slice follows the layer's width: the RDB's growth-32
-  // layers take one 32-wide slice, the 2- and 3-channel heads a 16-wide one.
-  if (cout > 16)
-    return launch_cfg<K, 32, MODE>(x, xcs, cin, w, dq, bias, inv, out, ocs, ocoff, cout, b, h,
-                                   wd, relu, odt, st);
-  return launch_cfg<K, 16, MODE>(x, xcs, cin, w, dq, bias, inv, out, ocs, ocoff, cout, b, h,
-                                 wd, relu, odt, st);
+  // The N tile, as ops/conv_chain_int8.py `n_tile_i8` packs the weights for.
+  if (cout <= 8)
+    return launch_cfg<K, 8, MODE>(x, xcs, cin, w, dq, bias, inv, out, ocs, ocoff, cout, b, h, wd,
+                                  relu, odt, st);
+  if (cout <= 16)
+    return launch_cfg<K, 16, MODE>(x, xcs, cin, w, dq, bias, inv, out, ocs, ocoff, cout, b, h, wd,
+                                   relu, odt, st);
+  return launch_cfg<K, MAX_NT, MODE>(x, xcs, cin, w, dq, bias, inv, out, ocs, ocoff, cout, b, h,
+                                     wd, relu, odt, st);
 }
 
 }  // namespace
@@ -261,7 +458,8 @@ extern "C" int nt_conv2d_i8(const void* x, int x_cstride, int cin, const void* w
                             int taps_mode, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // The 1x1 layers (the conv chains') take the per-column schedule only.
-  if ((ksize != 1 && ksize != 3) || x_cstride % 16 != 0 ||
+  if ((ksize != 1 && ksize != 3) || x_cstride % 16 != 0 || cin < 1 || cin > x_cstride ||
+      cout < 1 ||
       (taps_mode != NT_TAPS_DY && (ksize != 3 || (taps_mode != NT_TAPS_DX &&
                                                   taps_mode != NT_TAPS_INT32))) ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||

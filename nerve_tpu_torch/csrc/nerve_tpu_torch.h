@@ -91,14 +91,14 @@ int nt_rdb_lff(const void* cat, int ccat, const float* w, const float* bias,
 
 // One SAME 3x3 or 1x1 int8 conv layer (static post-training quantisation).
 // Reads int8 channels [0, cin) of x (channel stride x_cstride, a multiple of
-// 16; x 16-byte aligned). w is int8 (ksize*ksize, cout, ceil16(cin)), zero
-// beyond cin. taps_mode NT_TAPS_DY: for each tap t = 3*dy + dx, in order
-// (dy outer, dx inner), the int32 sum over the input channels times
-// dq[t*cout + n] is rounded to bfloat16 and added in float32; NT_TAPS_DX:
-// the same with dx outer; NT_TAPS_INT32: the taps' int32 sums are added in
-// int32 and the total times dq[n] (cout factors) is the float32 sum
-// (NT_TAPS_DX and NT_TAPS_INT32 take ksize 3 only). Then
-// bias[n], relu if asked. out_dtype NT_I8 writes
+// 16; x 16-byte aligned). w is the int8 image of ops/conv_chain_int8.py
+// `pack_i8_weights` (16-byte aligned). taps_mode NT_TAPS_DY: for each tap
+// t = 3*dy + dx, in order (dy outer, dx inner), the int32 sum over the
+// input channels times dq[t*cout + n] is rounded to bfloat16 and added in
+// float32; NT_TAPS_DX: the same with dx outer; NT_TAPS_INT32: the taps'
+// int32 sums are added in int32 and the total times dq[n] (cout factors)
+// is the float32 sum (NT_TAPS_DX and NT_TAPS_INT32 take ksize 3 only).
+// Then bias[n], relu if asked. out_dtype NT_I8 writes
 // clip(rint(v * inv[n]), -127, 127) into int8 channels
 // [out_coff, out_coff + cout) of out (channel stride out_cstride); NT_BF16
 // and NT_F32 write v rounded to that type.
@@ -107,6 +107,17 @@ int nt_conv2d_i8(const void* x, int x_cstride, int cin, const void* w,
                  void* out, int out_cstride, int out_coff, int cout, int b,
                  int h, int w_, int ksize, int relu, int out_dtype,
                  int taps_mode, void* stream);
+
+// Input quantisation of the int8 paths: the channel concatenation of x0, x1,
+// x2 (nx = 1..3 parts of c0, c1, c2 channels, each (B, H, W, c_i) of one
+// dtype, NT_F32 or NT_BF16) becomes clip(rint(x / scale[0]), -127, 127)
+// (an IEEE division, rounded half to even) in int8 channels
+// [0, c0 + c1 + c2) of out (channel stride out_cstride); channels up to
+// out_c are written as zeros.
+int nt_quantize_i8(const void* x0, const void* x1, const void* x2, int nx,
+                   int c0, int c1, int c2, const float* scale, void* out,
+                   int out_cstride, int out_c, int b, int h, int w_, int dtype,
+                   void* stream);
 
 // int8 RDB local feature fusion and residual. cat is int8 (B, H, W, .) with
 // channel stride cat_cstride (a multiple of 16), of which channels
@@ -133,7 +144,8 @@ const char* nt_error_string(int err);
 
 // Tensor-core building blocks (sm_80+): ldmatrix of four 8x8 b16 matrices
 // (8 rows of 16 bytes each) from shared memory, one bf16 m16n8k16 product
-// accumulated in float32, and one int8 m16n8k32 product accumulated in int32.
+// accumulated in float32, and one int8 m16n8k32 product accumulated in int32
+// (rdb_int8.cu's fusion).
 __device__ __forceinline__ unsigned nt_smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -335,5 +347,94 @@ __device__ __forceinline__ void nt_wgmma(float (&d)[N / 2], uint64_t da, uint64_
   if constexpr (N == 32) nt_wgmma_m64n32k16(d, da, db, scale_d);
   if constexpr (N == 64) nt_wgmma_m64n64k16(d, da, db, scale_d);
   if constexpr (N == 128) nt_wgmma_m64n128k16(d, da, db, scale_d);
+}
+
+// D (64 x N, int32, in registers) += A (64 x 32) * B (32 x N), s8 x s8, both
+// from shared memory, both K-major; scale_d = 0 overwrites D. The fragment
+// layout of D is that of the float32 products above.
+__device__ __forceinline__ void nt_wgmma_m64n8k32_s8(int (&d)[4], uint64_t da, uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void nt_wgmma_m64n16k32_s8(int (&d)[8], uint64_t da, uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void nt_wgmma_m64n32k32_s8(int (&d)[16], uint64_t da, uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void nt_wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  if constexpr (N == 8) nt_wgmma_m64n8k32_s8(d, da, db, scale_d);
+  if constexpr (N == 16) nt_wgmma_m64n16k32_s8(d, da, db, scale_d);
+  if constexpr (N == 32) nt_wgmma_m64n32k32_s8(d, da, db, scale_d);
+}
+
+// Host side of the TMA kernels (conv_chain.cu, conv_int8.cu).
+#include <cuda.h>
+
+// cuTensorMapEncodeTiled, looked up at run time through the runtime's
+// entry-point query, so that the library needs no link against libcuda.
+using NtEncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline NtEncodeTiled nt_encode_tiled() {
+  static const NtEncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<NtEncodeTiled>(f) : nullptr;
+  }();
+  return fn;
+}
+
+struct NtDeviceLimits {
+  int sms, smem;  // SMs; shared memory a block may opt in to
+};
+
+inline cudaError_t nt_device_limits(NtDeviceLimits& lim) {
+  static NtDeviceLimits cache[64] = {};
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (cache[dev].sms == 0) {
+    NtDeviceLimits d;
+    err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&d.smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    cache[dev] = d;
+  }
+  lim = cache[dev];
+  return cudaSuccess;
 }
 #endif

@@ -12,6 +12,11 @@ package's hardware harnesses under ``scripts/``:
 * ``python -m nerve_tpu_torch.diag.d2s``: the packed depth-to-space
   candidates at 1080p → 2160p (``scripts/diag_d2s.py``).
 
+Two more time the port's own layers where the serving paths run them:
+``python -m nerve_tpu_torch.diag.conv [--int8] [--slices]`` (the bf16 and
+int8 dense convolutions, the input quantisation and the slices) and
+``python -m nerve_tpu_torch.diag.warp`` (the flow warp, plain PyTorch).
+
 Each runs on the card unless given ``--device cpu`` (``--small`` shrinks
 the shapes for a CPU run). Each first holds its kernels against their plain
 versions at a small shape, then times them.

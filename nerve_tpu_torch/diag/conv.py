@@ -1,5 +1,5 @@
-"""The bf16 dense convolution where the serving paths run it, at 1080p:
-``python -m nerve_tpu_torch.diag.conv [--slices] [--device cpu] [--small]``.
+"""The dense convolutions where the serving paths run them, at 1080p:
+``python -m nerve_tpu_torch.diag.conv [--int8] [--slices] [--device cpu] [--small]``.
 
 ``csrc/conv_chain.cu``'s layer (``nt_conv2d``) is the flagship's conv-chain
 kernel and the RDB's dense-layer kernel. The cases, in bfloat16, each with
@@ -15,14 +15,28 @@ bias in the call):
   channels of the block's 224-channel buffer in, a 32-channel slot of the
   same buffer out (``ops.conv_chain.conv_layer_launch``);
 * the RDB stack's 8 blocks (``ops.rdb_chain_apply``);
-* with ``--slices``, ms per frame of the flagship's bf16 and int8 streaming
-  slices and the lightweight slice, seeded as ``chip_smoke.py`` seeds them
-  (median of the timed frames, the first untimed).
+* with ``--int8``, the int8 dense layer (``csrc/conv_int8.cu``,
+  ``nt_conv2d_i8``) and the input quantisation in the same places, each
+  calibrated on its own input, weights packed once as a served model keeps
+  them: each conv-chain site through ``ops.conv_chain_int8_apply``, its
+  layers alone (10 runs back to back on a quantised input) and its input
+  quantisation alone; each dense layer of one int8 RDB block (64…192 → 32)
+  in the RDB's form, once and 10 times back to back; the int8 RDB stack's
+  8 blocks per column and per channel. The
+  yardstick is ``torch._int_mm``'s time for the same int32 products
+  (products only: one call per 1×1 layer and per 3×3 layer on a pre-built
+  int8 im2col matrix, K and N padded to multiples of 8; no im2col, no
+  dequantisation), the bound that of int8 (1,979 TOPS);
+* with ``--slices``, ms per frame of the flagship's bf16 and int8 (per
+  column and per channel) streaming slices and the lightweight slice,
+  seeded as ``chip_smoke.py`` seeds them (median of the timed frames, the
+  first untimed).
 
 It measures the ``nerve_tpu_torch`` that is first on the path and prints
 its location first, so the same file times another checkout's package:
-``PYTHONPATH=OTHER python nerve_tpu_torch/diag/conv.py --slices``. The last
-line is one JSON object of every time.
+``PYTHONPATH=OTHER python nerve_tpu_torch/diag/conv.py --slices`` (the
+slices drive the models' public entry points only; ``--int8`` needs this
+checkout's int8 API). The last line is one JSON object of every time.
 """
 
 from __future__ import annotations
@@ -45,7 +59,8 @@ from nerve_tpu_torch.models import (
     streaming_prime,
     streaming_step,
 )
-from nerve_tpu_torch.ops import conv_chain
+from nerve_tpu_torch.ops import conv_chain, rdb_int8
+from nerve_tpu_torch.ops import conv_chain_int8 as cc8
 
 H, W = 1080, 1920
 FEATURES, BLOCKS, GROWTH = 64, 8, 32
@@ -211,17 +226,86 @@ def run_frames(model, video):
 
 
 def slices(dev, h: int, w: int) -> dict:
-    """ms per frame of the bf16, int8 (per-column) and lightweight slices."""
+    """ms per frame of the bf16, int8 (per column and per channel) and
+    lightweight slices."""
     g = torch.Generator().manual_seed(1)
     video = [torch.rand((1, h, w, 3), generator=g).to(dev) for _ in range(STEPS + 1)]
+    calib = torch.stack(video[:3], dim=1)[:, :, :h // 4, :w // 4]
+    out = {}
     with torch.inference_mode():
-        bf16 = statistics.median(run_stream(seeded_model(dev, 0), video)[1])
-        model8 = seeded_model(dev, 0, quantized=True, quantized_chains=True)
-        quantize_sr(model8, torch.stack(video[:3], dim=1)[:, :, :h // 4, :w // 4],
-                    device=dev)
-        int8 = statistics.median(run_stream(model8, video)[1])
-        light = statistics.median(run_frames(seeded_lightweight(dev, 0), video)[1])
-    return {"bf16": bf16, "int8": int8, "lightweight": light}
+        out["bf16"] = statistics.median(run_stream(seeded_model(dev, 0), video)[1])
+    saved = rdb_int8.PER_CHANNEL_INT8
+    try:
+        for name, per_channel in (("int8", False), ("int8_per_channel", True)):
+            rdb_int8.PER_CHANNEL_INT8 = per_channel
+            model8 = seeded_model(dev, 0, quantized=True, quantized_chains=True)
+            quantize_sr(model8, calib, device=dev)
+            with torch.inference_mode():
+                out[name] = statistics.median(run_stream(model8, video)[1])
+            del model8
+    finally:
+        rdb_int8.PER_CHANNEL_INT8 = saved
+    with torch.inference_mode():
+        out["lightweight"] = statistics.median(run_frames(seeded_lightweight(dev, 0), video)[1])
+    return out
+
+
+def int_mm_yardstick(shapes, dev, repeat: int = 1):
+    """``torch._int_mm`` (int8 × int8 → int32) for the products of dense
+    layers ``[(k, cin, cout, npix)]``: one call per layer on pre-built
+    operands, an (npix, k²·cin) im2col matrix of random int8 and the
+    (k²·cin, cout) weights, K and N padded to multiples of 8 (the call's
+    rule); every layer ``repeat`` times. Products only. The operands are
+    made at the first call (the timing's warm-up)."""
+    mats = []
+
+    def run():
+        if not mats:
+            g = torch.Generator(device=dev).manual_seed(0)
+            for k, cin, cout, npix in shapes:
+                kk, n = -(-k * k * cin // 8) * 8, -(-cout // 8) * 8
+                mats.append((torch.randint(-127, 128, (npix, kk), generator=g,
+                                           dtype=torch.int8, device=dev),
+                             torch.randint(-127, 128, (n, kk), generator=g,
+                                           dtype=torch.int8, device=dev).t()))
+        return [torch._int_mm(a, b) for _ in range(repeat) for a, b in mats]
+    return run
+
+
+def int8_layer_shapes(x, params):
+    """[(k, cin, cout, npix)] of a chain's dense layers."""
+    return [(w.shape[0], w.shape[2], w.shape[3], pixels(x)) for w, _b, _a in params]
+
+
+def rdb_int8_shapes(npix: int, c: int = FEATURES, blocks: int = BLOCKS):
+    """[(k, cin, cout, npix)] of one RDB block's dense layers and fusion."""
+    return [(3, c + GROWTH * i, GROWTH, npix) for i in range(5)] + [(1, c + 5 * GROWTH, c, npix)]
+
+
+def chain_alone(xs, qchain, cout, dt, n: int = 10):
+    """``n`` runs of a quantised chain's layer kernels back to back on its
+    quantised input, weights packed beforehand."""
+    qlayers, s_in, acts = qchain
+    b, h, w = xs[0].shape[:3]
+    cin = sum(t.shape[-1] for t in xs)
+    hq = torch.zeros((b, h, w, -(-cin // 16) * 16), dtype=torch.int8, device=xs[0].device)
+    cc8.quantize_into(xs, s_in, hq, hq.shape[-1])
+    launches, x = [], hq
+    for i, layer in enumerate(cc8.packed_chain(qlayers, cout)):
+        last = i == len(qlayers) - 1
+        out = torch.empty((b, h, w, layer.cout if last else -(-layer.cout // 16) * 16),
+                          dtype=dt if last else torch.int8, device=hq.device)
+        launches.append((x, layer, out, 0, acts[i] == "relu"))
+        x = out
+    return lambda: [cc8.conv_layer_launch_i8(*args) for _ in range(n) for args in launches]
+
+
+def rdb_layer_i8(cat, layer, n: int = 1):
+    """``n`` launches of one packed dense layer of an int8 RDB block in the
+    RDB's form (its input channels of the block's buffer in, its slot out),
+    per column, as ``rdb_chain_int8_apply`` runs it."""
+    return lambda: [cc8.conv_layer_launch_i8(cat, layer, cat, layer.cin, relu=True)
+                    for _ in range(n)]
 
 
 # --------------------------------------------------------------------------- #
@@ -304,8 +388,90 @@ def measure(dev, reps: int, small: bool) -> dict:
     return rows
 
 
+def measure_int8(dev, reps: int, small: bool) -> dict:
+    """Every int8 case's times and bounds (module docstring)."""
+    dt = torch.bfloat16
+    h, w = (18, 70) if small else (H, W)
+    g = torch.Generator().manual_seed(8)
+    rows = {}
+
+    def row(name, kern, lib, work, alone=None):
+        ms = _common.median_ms(kern, dev, reps)
+        lib_ms = _common.median_ms(lib, dev, reps) if lib else None
+        rows[name] = {"ms": ms, "library_ms": lib_ms, "bound_ms": work[0], "bound_by": work[1]}
+        lib_txt = "none" if lib_ms is None else f"{lib_ms:.3f} ms (_int_mm, products only)"
+        print(f"int8 {name:28s} kernel {ms:.3f} ms, library {lib_txt}, bound {work[0]:.3f} ms "
+              f"({work[1]}): {work[0] / ms:.3f} of the bound", flush=True)
+        for what, fn in (alone or {}).items():
+            rows[name][f"{what}_ms"] = _common.median_ms(fn, dev, reps) / (
+                10 if what == "kernels_alone" else 1)
+            print(f"int8 {name:28s} {what} {rows[name][f'{what}_ms']:.3f} ms", flush=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    sites, total = [], None
+    for name, (x, p) in zip(SITES, serving_inputs(g, dev, dt, h, w)):
+        xs = x if isinstance(x, list) else [x]
+        q = cc8.quantize_conv_chain(p, cc8.calibrate_conv_chain(xs, p))
+        cout = p[-1][0].shape[-1]
+        work = (chain_ops(p, pixels(x)),
+                nbytes(*xs, *(t for layer in q[0] for t in layer)) + pixels(x) * cout * 2)
+        sites.append((xs, q, cout, work, int8_layer_shapes(x, p), cc8.packed_chain(q[0], cout)))
+        cin = sum(t.shape[-1] for t in xs)
+        hq = torch.empty((*xs[0].shape[:3], -(-cin // 16) * 16), dtype=torch.int8,
+                         device=xs[0].device)
+        alone = None
+        if dev.type == "cuda":
+            alone = {"kernels_alone": chain_alone(xs, q, cout, dt),
+                     "quantize": lambda xs=xs, q=q, hq=hq: cc8.quantize_into(xs, q[1], hq,
+                                                                            hq.shape[-1])}
+        row(f"site {name}", lambda xs=xs, q=q, c=cout, pk=sites[-1][5]: ops.conv_chain_int8_apply(
+            xs, q, c, dt, packed=pk),
+            int_mm_yardstick(sites[-1][4], dev) if dev.type == "cuda" else None,
+            bound(*work, "int8"), alone)
+        del hq
+    row("five sites", lambda: [ops.conv_chain_int8_apply(xs, q, c, dt, packed=pk)
+                               for xs, q, c, _w, _s, pk in sites],
+        int_mm_yardstick([s for site in sites for s in site[4]], dev)
+        if dev.type == "cuda" else None,
+        bound(sum(s[3][0] for s in sites), sum(s[3][1] for s in sites), "int8"))
+    del sites
+
+    block = _common.rdb_params(g, FEATURES, dev)
+    xcal = _randn(g, (1, min(h, 128), min(w, 256), FEATURES), 0.5).to(dev)
+    qblock = rdb_int8.quantize_rdb_chain([block], rdb_int8.calibrate_rdb_chain(xcal, [block]))[0]
+    cat = torch.randint(-127, 128, (1, h, w, FEATURES + 5 * GROWTH), generator=g,
+                        dtype=torch.int8).to(dev)
+    npix = pixels(cat)
+    layers = rdb_int8.packed_block(qblock, FEATURES, 5, GROWTH, False).layers
+    for i in range(5 if dev.type == "cuda" else 0):  # the RDB's form exists on the card only
+        cin = FEATURES + i * GROWTH
+        row(f"rdb layer {i} ({cin}->{GROWTH})", rdb_layer_i8(cat, layers[i]),
+            int_mm_yardstick([(3, cin, GROWTH, npix)], dev),
+            bound(2 * 9 * cin * GROWTH * npix, npix * (cin + GROWTH) + 9 * cin * GROWTH, "int8"),
+            {"kernels_alone": rdb_layer_i8(cat, layers[i], 10)})
+    del cat
+    blocks = 2 if small else BLOCKS
+    plist = [_common.rdb_params(g, FEATURES, dev) for _ in range(blocks)]
+    scales = rdb_int8.calibrate_rdb_chain(xcal, plist)
+    xr = _randn(g, (1, h, w, FEATURES), 0.5).to(dev, dt)
+    ops_count = sum(2 * p.numel() * pixels(xr) for q in plist for p in q if p.ndim > 1)
+    for scheme, per_channel in (("per column", False), ("per channel", True)):
+        q = rdb_int8.quantize_rdb_chain(plist, scales, per_channel=per_channel)
+        pq = rdb_int8.packed_rdb_chain(q, per_channel)
+        row(f"rdb {blocks} blocks {scheme}",
+            lambda q=q, pc=per_channel, pq=pq: ops.rdb_chain_int8_apply(xr, q, None, pc, None, pq),
+            int_mm_yardstick(rdb_int8_shapes(pixels(xr)), dev, repeat=blocks)
+            if dev.type == "cuda" else None,
+            bound(ops_count, 2 * nbytes(xr) + nbytes(*(t for wq, dq, m in q
+                                                       for t in (*wq, dq, m))), "int8"))
+    return rows
+
+
 def main(argv=None) -> dict:
     p = _common.parser(__doc__.splitlines()[0])
+    p.add_argument("--int8", action="store_true",
+                   help="also time the int8 dense layer and the input quantisation")
     p.add_argument("--slices", action="store_true",
                    help="also time the bf16, int8 and lightweight slices (ms per frame)")
     args = p.parse_args(argv)
@@ -314,6 +480,8 @@ def main(argv=None) -> dict:
     if dev.type == "cuda":
         print(f"device {torch.cuda.get_device_name(dev)}", flush=True)
     result = {"cases": measure(dev, args.reps, args.small)}
+    if args.int8:
+        result["int8"] = measure_int8(dev, args.reps, args.small)
     if args.slices:
         h, w = (36, 64) if args.small else (H, W)
         result["slices"] = slices(dev, h, w)

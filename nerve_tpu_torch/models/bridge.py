@@ -61,16 +61,17 @@ def load_flax_variables(module: nn.Module, variables: Mapping[str, Any]) -> nn.M
     if missing or unused:
         raise KeyError(f"flax variables do not match the module: missing {missing}, "
                        f"unused {unused}")
-    with torch.no_grad():
-        for k, t in state.items():
-            arr = flat[k]
-            if arr.shape != tuple(t.shape):
-                raise ValueError(f"{k}: flax shape {arr.shape}, module shape {tuple(t.shape)}")
-            if (arr.dtype == np.int8) != (t.dtype == torch.int8):
-                raise TypeError(f"{k}: flax {arr.dtype} for a module {t.dtype} tensor")
-            if arr.dtype != np.int8:
-                arr = np.asarray(arr, dtype=np.float32)
-            t.copy_(torch.from_numpy(arr))
+    new = {}
+    for k, t in state.items():
+        arr = flat[k]
+        if arr.shape != tuple(t.shape):
+            raise ValueError(f"{k}: flax shape {arr.shape}, module shape {tuple(t.shape)}")
+        if (arr.dtype == np.int8) != (t.dtype == torch.int8):
+            raise TypeError(f"{k}: flax {arr.dtype} for a module {t.dtype} tensor")
+        if arr.dtype != np.int8:
+            arr = np.asarray(arr, dtype=np.float32)
+        new[k] = torch.from_numpy(arr)
+    module.load_state_dict(new, strict=True)
     return module
 
 

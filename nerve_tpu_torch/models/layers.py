@@ -10,7 +10,8 @@ biases); they are placeholders until real weights are loaded.
 
 The int8 state of a quantised conv-chain site lives in buffers under the
 name of the flax ``"quant"`` collection's entry (``qhead``, ``qflow``,
-``qattn``, ``qconv``), in the JAX wire format (``ops.conv_chain_int8``).
+``qattn``, ``qconv``), in the JAX wire format (``ops.conv_chain_int8``),
+and keeps its weights packed for the int8 kernel (``QuantState.packed``).
 """
 
 from __future__ import annotations
@@ -71,10 +72,16 @@ class QuantState(nn.Module):
     ``state_dict()`` keys follow the tree of the flax ``"quant"`` entry:
     for a conv chain ``(qlayers, s_in)``, ``0.{i}.0`` is layer i's ``wq``,
     ``0.{i}.1`` its ``meta`` and ``1`` is ``s_in``.
+
+    It also keeps what :meth:`packed` built from it (the int8 kernel's
+    weight image) until the state is written (:meth:`assign`,
+    ``load_state_dict``) or moved (``.to()``), which drop it: int8 weights
+    do not change after calibration, so a served model packs once.
     """
 
     def __init__(self, tree):
         super().__init__()
+        self._packed = None
         self.size = len(tree)
         for i, v in enumerate(tree):
             if isinstance(v, torch.Tensor):
@@ -87,9 +94,25 @@ class QuantState(nn.Module):
         return tuple(self._buffers[str(i)] if str(i) in self._buffers
                      else self._modules[str(i)].value() for i in range(self.size))
 
+    def packed(self, key, build):
+        """``build()`` of this state, kept until the state is written or
+        moved; ``key`` names what else the result depends on (a scheme)."""
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, build())
+        return self._packed[1]
+
+    def _apply(self, *args, **kwargs):
+        self._packed = None
+        return super()._apply(*args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._packed = None
+        super()._load_from_state_dict(*args, **kwargs)
+
     @torch.no_grad()
     def assign(self, tree) -> None:
         """Copy ``tree`` (same structure, shapes and dtypes) into the buffers."""
+        self._packed = None
         if len(tree) != self.size:
             raise ValueError(f"quant tree of {len(tree)} entries, state holds {self.size}")
         for i, v in enumerate(tree):
@@ -150,8 +173,10 @@ def maybe_quantized_chain(mod: nn.Module, name: str, x, entries,
         return ops.conv_chain_apply(x, entries)
     qlayers, s_in = state.value()
     dt = x[0].dtype if isinstance(x, (list, tuple)) else x.dtype
-    return ops.conv_chain_int8_apply(x, (qlayers, s_in, tuple(a for *_, a in entries)),
-                                     entries[-1][0].shape[-1], out_dtype=dt)
+    cout = entries[-1][0].shape[-1]
+    return ops.conv_chain_int8_apply(
+        x, (qlayers, s_in, tuple(a for *_, a in entries)), cout, out_dtype=dt,
+        packed=state.packed(cout, lambda: conv_chain_int8.packed_chain(qlayers, cout)))
 
 
 class QuantizableConv(ConvParams):

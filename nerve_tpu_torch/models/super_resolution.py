@@ -238,7 +238,11 @@ class RDBStack(nn.Module):
             self.qchain.assign(rdb_int8.quantize_rdb_chain(
                 params_f32, scales, per_channel=rdb_int8.PER_CHANNEL_INT8))
             return ops.rdb_chain_apply(x, params_list)
-        return ops.rdb_chain_int8_apply(x, self.qchain.value(), out_dtype=x.dtype)
+        qchain, int32_taps = self.qchain.value(), rdb_int8.PER_CHANNEL_INT8
+        return ops.rdb_chain_int8_apply(
+            x, qchain, out_dtype=x.dtype, int32_taps=int32_taps,
+            packed=self.qchain.packed(int32_taps,
+                                      lambda: rdb_int8.packed_rdb_chain(qchain, int32_taps)))
 
 
 class SuperResolutionNet(nn.Module):

@@ -45,6 +45,7 @@ SIGNATURES = {
     "nt_conv2d_i8": (_I, (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P)),
     "nt_rdb_lff_i8": (_I, (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_quantize_i8": (_I, (_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "nt_error_string": (ctypes.c_char_p, (_I,)),
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

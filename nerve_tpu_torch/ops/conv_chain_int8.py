@@ -26,13 +26,20 @@ outer, dx inner), then the float32 bias and the activation; a layer before
 the last requantises by multiplication with row 2, the last layer returns
 its real value in ``out_dtype``.
 
-A CUDA tensor runs ``csrc/conv_int8.cu``, one launch per layer, through
-int8 device buffers; a CPU tensor runs ``conv_chain_int8_plain``.
+A CUDA tensor runs the hand-written kernels: ``csrc/quantize_i8.cu``
+quantises the input, a list's parts into their channel slots, in one
+launch (counter ``quantize_i8``), and ``csrc/conv_int8.cu`` runs one launch
+per layer (counter ``conv_chain_int8``) through int8 device buffers. The
+layer kernel takes its weights as the image of :func:`pack_i8_weights`,
+packed once per quantised layer with the layer's factors
+(:func:`packed_chain`) and kept while the wire-format tensors are unchanged.
+A CPU tensor runs ``conv_chain_int8_plain``.
 """
 
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +50,9 @@ from nerve_tpu_torch.ops.conv_chain import _concat, _layer_specs, conv_chain_pla
 BIAS_SLOT = 8  # leading zero rows of the wire format's weight matrices
 MIN_NOUT = 64  # output columns are padded up to a multiple of this
 QMAX = 127.0
+CHUNK_I8 = 32  # input channels per K step of the int8 kernel (32 bytes a pixel)
+N_TILES_I8 = (8, 16, 32)  # the int8 kernel's output-channel tiles (wgmma N)
+MAX_PARTS = 3  # input tensors the quantisation kernel takes
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -173,12 +183,97 @@ def conv_chain_int8_plain(x, qlayers, s_in, acts, out_cout: int, out_dtype=None)
     raise ValueError("empty int8 conv chain")
 
 
-def tap_major(wi: torch.Tensor, taps: int, ncols: int, cout: int) -> torch.Tensor:
-    """Wire-format rows ``(cin, taps·ncols)`` → the kernel's int8
-    ``(taps, cout, ceil16(cin))``, zero beyond cin."""
+def n_tile_i8(cout: int) -> int:
+    """The int8 kernel's output-channel tile for a layer of ``cout`` channels
+    (wider layers walk N in tiles of the last)."""
+    return next((n for n in N_TILES_I8 if cout <= n), N_TILES_I8[-1])
+
+
+def pack_i8_weights(wi: torch.Tensor, taps: int, ncols: int, cout: int) -> torch.Tensor:
+    """Wire-format rows ``(cin, taps·ncols)`` (column ``tap·ncols + n``) → the
+    int8 kernel's image, 1-D int8.
+
+    The image is ``[n-tile][chunk][tap][k half][n / 8][n % 8][k % 16]``: for
+    each N tile of ``n_tile_i8(cout)`` output channels and each 32-channel
+    input chunk, the taps of a 32 × N slice in wgmma's K-major core
+    matrices (8 output channels × 16 input channels, 128 bytes), the
+    chunk's first 16 input channels before its last 16. Input channels past
+    ``cin`` and output channels past ``cout`` are zero.
+    """
     cin = wi.shape[0]
-    w = wi.reshape(cin, taps, ncols)[:, :, :cout].permute(1, 2, 0)
-    return F.pad(w, (0, _ceil_to(cin, 16) - cin)).contiguous()
+    nt = n_tile_i8(cout)
+    ncot, nch = -(-cout // nt), -(-cin // CHUNK_I8)
+    wp = wi.new_zeros((nch * CHUNK_I8, taps, ncot * nt), dtype=torch.int8)
+    wp[:cin, :, :cout] = wi.reshape(cin, taps, ncols)[:, :, :cout]
+    # (chunk, k half, k % 16, tap, n-tile, n / 8, n % 8) → the image's order
+    wp = wp.reshape(nch, 2, 16, taps, ncot, nt // 8, 8).permute(4, 0, 3, 1, 5, 6, 2)
+    return wp.contiguous().reshape(-1)
+
+
+class PackedLayerI8(NamedTuple):
+    """One int8 layer as ``nt_conv2d_i8`` takes it: the weight image, the
+    dequant factors (taps·cout per column, or cout per channel), the biases
+    and the requant factors 1/s_out (cout each), contiguous float32."""
+
+    w: torch.Tensor
+    dq: torch.Tensor
+    bias: torch.Tensor
+    inv: torch.Tensor
+    taps: int
+    cin: int
+    cout: int
+
+
+def packed_chain(qlayers, out_cout: int) -> list:
+    """The :class:`PackedLayerI8` of each layer of a quantised chain whose
+    last layer has ``out_cout`` channels (counted in ``dispatch.packs``)."""
+    packs = [PackedLayerI8(pack_i8_weights(wq[BIAS_SLOT:], taps, npad, cout),
+                           meta[0].reshape(taps, npad)[:, :cout].contiguous().reshape(-1),
+                           meta[1, :cout].contiguous(), meta[2, :cout].contiguous(),
+                           taps, cin, cout)
+             for (wq, meta), (taps, cin, cout, npad) in zip(qlayers,
+                                                            layer_geometry(qlayers, out_cout))]
+    dispatch.packs["int8"] += 1
+    return packs
+
+
+def quantize_into_plain(xs: Sequence[torch.Tensor], scale: torch.Tensor, out: torch.Tensor,
+                        out_c: int) -> torch.Tensor:
+    """Plain version of :func:`quantize_into`."""
+    off = 0
+    for t in xs:
+        out[..., off:off + t.shape[-1]] = quantize_activation(t, scale)
+        off += t.shape[-1]
+    out[..., off:out_c] = 0
+    return out
+
+
+def quantize_into(xs: Sequence[torch.Tensor], scale: torch.Tensor, out: torch.Tensor,
+                  out_c: int) -> torch.Tensor:
+    """The parts ``xs`` (NHWC, concatenated on channels) quantised by
+    ``scale`` (:func:`quantize_activation`) into int8 channels
+    ``[0, Σ C)`` of ``out``, channels up to ``out_c`` zero; the rest of
+    ``out`` untouched. A CUDA ``out`` runs ``nt_quantize_i8``, one launch."""
+    total = sum(t.shape[-1] for t in xs)
+    if (not 1 <= len(xs) <= MAX_PARTS or any(t.shape[:3] != out.shape[:3] for t in xs)
+            or not total <= out_c <= out.shape[-1] or out.dtype != torch.int8):
+        raise ValueError(f"int8 quantisation of {[tuple(t.shape) for t in xs]} into channels "
+                         f"[0, {out_c}) of an int8 {tuple(out.shape)}")
+    if not dispatch.use_kernel(*xs, scale, out):
+        return quantize_into_plain(xs, scale, out, out_c)
+    xs = [t.contiguous() for t in xs]
+    dt = xs[0].dtype
+    if (any(t.dtype != dt for t in xs) or dt not in (torch.float32, torch.bfloat16)
+            or scale.dtype != torch.float32 or scale.numel() != 1 or not out.is_contiguous()):
+        raise ValueError("int8 quantisation takes float32 or bfloat16 parts of one dtype, a "
+                         "float32 scale and a contiguous output")
+    ptrs = [t.data_ptr() for t in xs] + [xs[0].data_ptr()] * (MAX_PARTS - len(xs))
+    widths = [t.shape[-1] for t in xs] + [0] * (MAX_PARTS - len(xs))
+    b, h, w = out.shape[:3]
+    _build.launch("nt_quantize_i8", out.device, *ptrs, len(xs), *widths, scale.data_ptr(),
+                  out.data_ptr(), out.shape[-1], out_c, b, h, w, _build.dtype_code(xs[0]))
+    dispatch.launches["quantize_i8"] += 1
+    return out
 
 
 # Tap schedules of ``nt_conv2d_i8`` (csrc/nerve_tpu_torch.h): per-tap
@@ -187,19 +282,21 @@ def tap_major(wi: torch.Tensor, taps: int, ncols: int, cout: int) -> torch.Tenso
 TAPS_DY, TAPS_DX, TAPS_INT32 = 0, 1, 2
 
 
-def conv_layer_launch_i8(x: torch.Tensor, cin: int, w: torch.Tensor, dq: torch.Tensor,
-                         bias: torch.Tensor, inv: torch.Tensor, out: torch.Tensor,
+def conv_layer_launch_i8(x: torch.Tensor, layer: PackedLayerI8, out: torch.Tensor,
                          out_coff: int, relu: bool, taps_mode: int = TAPS_DY) -> None:
-    """Launch ``nt_conv2d_i8``: int8 channels [0, cin) of ``x`` → channels
-    [out_coff, out_coff + cout) of ``out`` (int8 requantised by ``inv``, or
-    the real value in bfloat16/float32). ``w`` from :func:`tap_major`; ``dq``
+    """Launch ``nt_conv2d_i8``: int8 channels [0, layer.cin) of ``x`` →
+    channels [out_coff, out_coff + cout) of ``out`` (int8 requantised by
+    ``layer.inv``, or the real value in bfloat16/float32). ``layer.dq``
     holds taps·cout per-column factors, or cout per-channel ones for
     ``TAPS_INT32``; a 1×1 layer takes ``TAPS_DY`` only."""
     b, h, wd, xcs = x.shape
-    taps, cout, wks = w.shape
-    if taps not in (1, 9) or wks != _ceil_to(cin, 16) or cin > xcs or xcs % 16:
-        raise ValueError(f"int8 conv layer: weights {tuple(w.shape)} do not fit cin={cin} "
-                         f"of an input with {xcs} channels (a multiple of 16)")
+    w, dq, bias, inv, taps, cin, cout = layer
+    nt = n_tile_i8(cout)
+    image = -(-cout // nt) * nt * -(-cin // CHUNK_I8) * CHUNK_I8 * taps
+    if taps not in (1, 9) or w.shape != (image,) or cin > xcs or xcs % 16:
+        raise ValueError(f"int8 conv layer: weight image {tuple(w.shape)} does not fit "
+                         f"{taps} taps x {cin} -> {cout} on an input with {xcs} channels "
+                         "(a multiple of 16)")
     ndq = cout if taps_mode == TAPS_INT32 else taps * cout
     if (taps_mode not in (TAPS_DY, TAPS_DX, TAPS_INT32) or (taps_mode != TAPS_DY and taps != 9)
             or tuple(dq.shape) != (ndq,)
@@ -221,8 +318,11 @@ def conv_layer_launch_i8(x: torch.Tensor, cin: int, w: torch.Tensor, dq: torch.T
                   int(relu), _build.dtype_code(out), taps_mode)
 
 
-def conv_chain_int8_apply(x, qchain, out_cout: int, out_dtype=None) -> torch.Tensor:
-    """Run a quantised chain: (B, H, W, Cin) or a list → (B, H, W, out_cout)."""
+def conv_chain_int8_apply(x, qchain, out_cout: int, out_dtype=None,
+                          packed=None) -> torch.Tensor:
+    """Run a quantised chain: (B, H, W, Cin) or a list → (B, H, W, out_cout).
+    ``packed``: the chain's :func:`packed_chain`, or None to pack at this
+    call (the kernels' path only)."""
     qlayers, s_in, acts = qchain
     xs = list(x) if isinstance(x, (list, tuple)) else [x]
     out_dtype = out_dtype or xs[0].dtype
@@ -236,20 +336,18 @@ def conv_chain_int8_apply(x, qchain, out_cout: int, out_dtype=None) -> torch.Ten
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"int8 chain output must be float32 or bfloat16, got {out_dtype}")
     b, h, w = xs[0].shape[:3]
-    # Channel strides are multiples of 16, so the kernel moves 16-byte rows
-    # even for the 3-channel frames and the 81-channel cost volume.
+    # Channel strides are multiples of 16 (TMA's 16-byte pixel strides), also
+    # for the 3-channel frames and the 81-channel cost volume.
     hq = torch.empty((b, h, w, _ceil_to(cin, 16)), dtype=torch.int8, device=xs[0].device)
-    off = 0
-    for t in xs:
-        hq[..., off:off + t.shape[-1]] = quantize_activation(t, s_in)
-        off += t.shape[-1]
-    for i, ((wq, meta), (taps, cin_i, cout, npad)) in enumerate(zip(qlayers, geo)):
+    quantize_into(xs, s_in, hq, hq.shape[-1])
+    packed = packed_chain(qlayers, out_cout) if packed is None else packed
+    if len(packed) != len(qlayers):
+        raise ValueError(f"{len(packed)} packed layers for a chain of {len(qlayers)}")
+    for i, layer in enumerate(packed):
         last = i == len(qlayers) - 1
-        out = torch.empty((b, h, w, cout if last else _ceil_to(cout, 16)),
+        out = torch.empty((b, h, w, layer.cout if last else _ceil_to(layer.cout, 16)),
                           dtype=out_dtype if last else torch.int8, device=hq.device)
-        conv_layer_launch_i8(hq, cin_i, tap_major(wq[BIAS_SLOT:], taps, npad, cout),
-                             meta[0].reshape(taps, npad)[:, :cout].reshape(-1),
-                             meta[1, :cout], meta[2, :cout], out, 0, acts[i] == "relu")
+        conv_layer_launch_i8(hq, layer, out, 0, acts[i] == "relu")
         dispatch.launches["conv_chain_int8"] += 1
         hq = out
     return hq

@@ -10,6 +10,10 @@ it launches its kernel and nowhere else, so a run can show that its path
 went through the kernels (see ``chip_smoke.py``). ``rdb_int8_int32_taps``
 counts the int8 RDB blocks that ran the per-channel ``int32_taps`` scheme
 (each also counts under ``rdb_int8``).
+
+``packs`` counts the int8 states (a chain, an RDB stack) packed into the
+int8 layer kernel's weight image: host work, no launch. A model packs each
+of its int8 states once and keeps the packs, so a served frame packs none.
 """
 
 from __future__ import annotations
@@ -18,8 +22,9 @@ import torch
 
 KERNELS = ("d2s_packed", "correlation", "conv_chain", "conv_chain_dw3", "rdb",
            "conv_chain_int8", "rdb_int8", "planar_chain", "rdb_int8_int32_taps",
-           "rdb_taps", "d2s_packed_planar", "probe")
+           "rdb_taps", "d2s_packed_planar", "probe", "quantize_i8")
 launches = dict.fromkeys(KERNELS, 0)
+packs = {"int8": 0}
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
@@ -36,5 +41,7 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
 
 
 def reset_launches() -> None:
+    """Set every launch count and the pack count to 0."""
     for k in launches:
         launches[k] = 0
+    packs["int8"] = 0

@@ -34,18 +34,23 @@ bias, relu, requantised by multiplication with row 3; the fusion is
 blocks the result is requantised by division by the next block's s_in,
 after the last block rounded to ``out_dtype``.
 
-A CUDA tensor runs the hand-written kernels: the dense layers are
+A CUDA tensor runs the hand-written kernels: ``nt_quantize_i8``
+(``csrc/quantize_i8.cu``) quantises the stack's input into the first
+block's int8 (B, H, W, C + L·G) concatenation buffer, the dense layers are
 ``nt_conv2d_i8`` (``csrc/conv_int8.cu``, in the tap schedule of the scheme)
-writing into the slots of an int8
-(B, H, W, C + L·G) concatenation buffer, and ``nt_rdb_lff_i8``
+writing into the slots of that buffer, and ``nt_rdb_lff_i8``
 (``csrc/rdb_int8.cu``) fuses and requantises into the next block's buffer.
+The blocks' weights are packed for the kernels by :func:`packed_rdb_chain`:
+a caller that serves a stack many times packs it once and passes the packs
+(the models keep them with their int8 state); without them a call packs at
+every call.
 Any geometry (C, L, G) runs on the kernels; one whose layer does not fit a
 block's shared memory raises. A CPU tensor runs ``rdb_chain_int8_plain``.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,12 +62,14 @@ from nerve_tpu_torch.ops.conv_chain_int8 import (
     TAPS_DX,
     TAPS_DY,
     TAPS_INT32,
+    PackedLayerI8,
     _ceil_to,
     conv_layer_launch_i8,
     exact_float32,
     int_products,
+    pack_i8_weights,
     quantize_activation,
-    tap_major,
+    quantize_into,
 )
 
 FEAT_OFF = 8  # leading zero rows of the wire format's weight matrices
@@ -249,6 +256,43 @@ def rdb_chain_int8_plain(x: torch.Tensor, qchain, out_dtype=None, int32_taps=Non
     raise ValueError("empty int8 RDB chain")
 
 
+class PackedBlockI8(NamedTuple):
+    """One int8 block as the kernels take it: its dense layers and the
+    fusion's int8 weights ``(C, ceil16(C + L·G))``, zero beyond C + L·G."""
+
+    layers: List[PackedLayerI8]
+    lw: torch.Tensor
+
+
+def packed_block(block, features: int, num_layers: int, growth: int,
+                 int32_taps: bool) -> PackedBlockI8:
+    """A block's ``(wq, dq, meta)`` packed for the kernels; ``int32_taps``
+    takes the per-channel factors ``dq[i, :G]``."""
+    wq, dq, meta = block
+    layers = [PackedLayerI8(pack_i8_weights(wq[i][FEAT_OFF:], 9, growth, growth),
+                            (dq[i, :growth] if int32_taps else dq[i]).contiguous(),
+                            meta[0, i * growth:(i + 1) * growth].contiguous(),
+                            meta[3, i * growth:(i + 1) * growth].contiguous(),
+                            9, features + growth * i, growth)
+              for i in range(num_layers)]
+    ccat = features + num_layers * growth
+    lw = F.pad(wq[num_layers][FEAT_OFF:].t(), (0, _ceil_to(ccat, 16) - ccat)).contiguous()
+    return PackedBlockI8(layers, lw)
+
+
+def packed_rdb_chain(qchain, int32_taps=None) -> List[PackedBlockI8]:
+    """Every block of ``qchain`` packed for the kernels in the scheme
+    ``int32_taps`` (default ``PER_CHANNEL_INT8``; counted in
+    ``dispatch.packs``)."""
+    int32_taps, _ = _schemes(int32_taps, None)
+    num_layers, growth = chain_geometry(qchain)
+    features = qchain[0][0][-1].shape[1]
+    packs = [packed_block(block, features, num_layers, growth, int32_taps)
+             for block in qchain]
+    dispatch.packs["int8"] += 1
+    return packs
+
+
 def lff_launch_i8(cat: torch.Tensor, ccat: int, lw: torch.Tensor, ldq: torch.Tensor,
                   lbias: torch.Tensor, s_in: torch.Tensor, s_next: torch.Tensor,
                   out: torch.Tensor) -> None:
@@ -276,11 +320,13 @@ def lff_launch_i8(cat: torch.Tensor, ccat: int, lw: torch.Tensor, ldq: torch.Ten
 
 
 def rdb_chain_int8_apply(x: torch.Tensor, qchain, out_dtype=None, int32_taps=None,
-                         dx_major=None) -> torch.Tensor:
+                         dx_major=None, packed=None) -> torch.Tensor:
     """The quantised RDB stack: (B, H, W, C) → (B, H, W, C) in ``out_dtype``
     (default: x's), int8 between blocks. ``int32_taps`` (default
     ``PER_CHANNEL_INT8``) takes a per-channel chain; ``dx_major`` (default
-    ``DX_MAJOR_INT8``) orders a per-column chain's taps dx outer."""
+    ``DX_MAJOR_INT8``) orders a per-column chain's taps dx outer.
+    ``packed``: ``packed_rdb_chain(qchain, int32_taps)``, or None to pack at
+    this call (the kernels' path only)."""
     out_dtype = out_dtype or x.dtype
     int32_taps, dx_major = _schemes(int32_taps, dx_major)
     b, h, w, c = x.shape
@@ -294,25 +340,23 @@ def rdb_chain_int8_apply(x: torch.Tensor, qchain, out_dtype=None, int32_taps=Non
     # block's int8 input into channels [0, C) of the other.
     cats = [torch.empty((b, h, w, _ceil_to(ccat, 16)), dtype=torch.int8, device=x.device)
             for _ in range(min(len(qchain), 2))]
-    cats[0][..., :c] = quantize_activation(x, qchain[0][2][2, 0])
+    quantize_into([x], qchain[0][2][2, :1], cats[0], c)
     out = None
     mode = TAPS_INT32 if int32_taps else TAPS_DX if dx_major else TAPS_DY
-    for k, (wq, dq, meta) in enumerate(qchain):
+    packed = packed_rdb_chain(qchain, int32_taps) if packed is None else packed
+    if len(packed) != len(qchain):
+        raise ValueError(f"{len(packed)} packed blocks for a stack of {len(qchain)}")
+    for k, ((wq, dq, meta), block) in enumerate(zip(qchain, packed)):
         cat = cats[k % 2]
-        for i in range(num_layers):
-            cin = c + growth * i
-            conv_layer_launch_i8(cat, cin, tap_major(wq[i][FEAT_OFF:], 9, growth, growth),
-                                 (dq[i, :growth] if int32_taps else dq[i]).contiguous(),
-                                 meta[0, i * growth:(i + 1) * growth],
-                                 meta[3, i * growth:(i + 1) * growth], cat, cin, relu=True,
-                                 taps_mode=mode)
-        lw = F.pad(wq[num_layers][FEAT_OFF:].t(), (0, _ceil_to(ccat, 16) - ccat)).contiguous()
+        for layer in block.layers:
+            conv_layer_launch_i8(cat, layer, cat, layer.cin, relu=True, taps_mode=mode)
         if k == len(qchain) - 1:
             out = torch.empty((b, h, w, c), dtype=out_dtype, device=x.device)
             s_next = meta[2, :1]
         else:
             out, s_next = cats[(k + 1) % 2], qchain[k + 1][2][2, :1]
-        lff_launch_i8(cat, ccat, lw, meta[1, :c], meta[1, c:2 * c], meta[2, :1], s_next, out)
+        lff_launch_i8(cat, ccat, block.lw, meta[1, :c], meta[1, c:2 * c], meta[2, :1], s_next,
+                      out)
         dispatch.launches["rdb_int8"] += 1
         if int32_taps:
             dispatch.launches["rdb_int8_int32_taps"] += 1

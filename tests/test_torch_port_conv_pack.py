@@ -1,10 +1,12 @@
-"""The Python that the bf16 dense-convolution kernel depends on, on the CPU.
+"""The Python that the dense-convolution kernels depend on, on the CPU.
 
 ``csrc/conv_chain.cu`` reads its weights as the image of
 ``ops.conv_chain.pack_conv_weights`` and its input by the rule of
-``ops.conv_chain.input_route``; neither can be checked against the kernel
-here, so their layouts and rules are held to what the kernel's source says.
-numpy and torch only, no JAX.
+``ops.conv_chain.input_route``; ``csrc/conv_int8.cu`` reads its weights as
+the image of ``ops.conv_chain_int8.pack_i8_weights``, which a served model
+packs once and keeps with its int8 state (``QuantState.packed``). None of them can be checked against the kernels here, so
+their layouts and rules are held to what the kernels' sources say. numpy
+and torch only, no JAX.
 """
 
 import numpy as np
@@ -12,7 +14,8 @@ import pytest
 import torch
 
 from nerve_tpu_torch import ops
-from nerve_tpu_torch.ops import conv_chain
+from nerve_tpu_torch.models.layers import QuantizableConv
+from nerve_tpu_torch.ops import conv_chain, conv_chain_int8, dispatch, rdb_int8
 
 
 def _t(rng, *shape):
@@ -118,3 +121,101 @@ def test_conv_chain_list_input(dtype):
     got = ops.conv_chain_apply(parts, params)
     assert torch.equal(got, ops.conv_chain_apply(torch.cat(parts, -1), params))
     assert got.shape == (1, 6, 9, 3) and got.dtype == dtype
+
+
+def _wire_i8(kind, scheme, cout):
+    """An int8 layer in the wire format: (rows (cin, taps·ncols) without the
+    leading zero slot, taps, ncols, cin), quantised by the port's own
+    quantisers: a conv-chain layer per column, or an RDB dense layer (the
+    second of its block, cin = 5 + cout) per channel."""
+    g = torch.Generator().manual_seed(cout)
+    if scheme == "per_channel":
+        c, cin, params = 5, 5, []
+        for _ in range(2):
+            params += [torch.randn((3, 3, cin, cout), generator=g), torch.randn(cout, generator=g)]
+            cin += cout
+        params += [torch.randn((cin, c), generator=g), torch.randn(c, generator=g)]
+        wq, _dq, _meta = rdb_int8.quantize_rdb_block(params, c, torch.rand(3, generator=g) + 0.5,
+                                                     per_channel=True)
+        return wq[1][rdb_int8.FEAT_OFF:], 9, cout, c + cout
+    k, cin = (3, 21) if kind == "3x3" else (1, 40)
+    layer = (torch.randn((k, k, cin, cout), generator=g), torch.randn(cout, generator=g), "none")
+    (wq, _meta), = conv_chain_int8.quantize_conv_chain([layer], torch.rand(2, generator=g) + 0.5)[0]
+    ncols = wq.shape[1] // (k * k)
+    return wq[conv_chain_int8.BIAS_SLOT:], k * k, ncols, cin
+
+
+@pytest.mark.parametrize("cout", [2, 3, 12, 32, 64, 128])
+@pytest.mark.parametrize("kind,scheme", [("3x3", "per_column"), ("1x1", "per_column"),
+                                         ("3x3", "per_channel")])
+def test_pack_i8_layout(kind, scheme, cout):
+    """Wire-format element (ci, tap·ncols + co) sits at [n-tile][chunk][tap]
+    [k half][n / 8][n % 8][k % 16] of the int8 image, as the int8 kernel's B
+    descriptors read it (K-major core matrices of 8 output x 16 input
+    channels); every other byte is zero. Per-channel quantisation shares a
+    factor across a channel's nine tap columns and packs the same way (there
+    is no per-channel 1x1 layer)."""
+    wi, taps, ncols, cin = _wire_i8(kind, scheme, cout)
+    assert wi.dtype == torch.int8 and wi.shape == (cin, taps * ncols)
+    image = conv_chain_int8.pack_i8_weights(wi, taps, ncols, cout)
+    nt = conv_chain_int8.n_tile_i8(cout)
+    ncot, nch = -(-cout // nt), -(-cin // 32)
+    assert image.dtype == torch.int8 and image.shape == (ncot * nch * taps * 32 * nt,)
+    ci, tap, co = np.meshgrid(np.arange(cin), np.arange(taps), np.arange(cout), indexing="ij")
+    cot, n8, n = co // nt, (co % nt) // 8, co % 8
+    chunk, kh, k16 = ci // 32, (ci % 32) // 16, ci % 16
+    idx = ((((((cot * nch + chunk) * taps + tap) * 2 + kh) * (nt // 8) + n8) * 8 + n) * 16 + k16)
+    want = wi.reshape(cin, taps, ncols)[:, :, :cout]
+    assert torch.equal(image[torch.from_numpy(idx)], want)
+    rest = torch.ones(image.numel(), dtype=torch.bool)
+    rest[torch.from_numpy(idx.ravel())] = False
+    assert not image[rest].any()
+
+
+def test_n_tile_i8():
+    assert [conv_chain_int8.n_tile_i8(c) for c in (2, 3, 8, 12, 16, 24, 32, 64, 128)] == [
+        8, 8, 8, 16, 16, 32, 32, 32, 32]
+
+
+def test_pack_is_kept_until_the_weights_change():
+    """A served int8 site packs its weights once and keeps them, also when it
+    was built inside inference mode (its buffers then keep no version
+    counter); a recalibration, ``load_state_dict`` or a move repacks it."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((1, 5, 6, 8), generator=g)
+
+    def kept(conv):
+        return conv.qconv.packed(16, lambda: pytest.fail("the pack was not kept"))
+
+    def run(conv, x, mode="serve"):
+        conv.chain_quant = mode
+        with torch.inference_mode():
+            conv(x)
+        conv.chain_quant = "serve"
+
+    for built_in_inference in (False, True):
+        with torch.inference_mode(built_in_inference):
+            conv = QuantizableConv(16, 8, "relu", chain_quant="serve", device="cpu",
+                                   generator=g).eval()
+        dispatch.reset_launches()
+        run(conv, x, "calibrate")
+        for _ in range(3):
+            run(conv, x)
+        assert dispatch.packs["int8"] == 1
+        first = kept(conv)
+        run(conv, 3 * x, "calibrate")
+        run(conv, x)
+        qlayers, _s = conv.qconv.value()
+        fresh = conv_chain_int8.packed_chain(qlayers, 16)
+        assert dispatch.packs["int8"] == 3 and kept(conv) is not first  # one is ``fresh``
+        assert not torch.equal(kept(conv)[0].dq, first[0].dq)
+        assert all(torch.equal(a, b) for a, b in zip(kept(conv)[0], fresh[0])
+                   if isinstance(a, torch.Tensor))
+        with torch.inference_mode():
+            conv.load_state_dict(conv.state_dict())
+        run(conv, x)
+        with torch.inference_mode():
+            conv.to("cpu")
+        run(conv, x)
+        run(conv, x)
+        assert dispatch.packs["int8"] == 5

@@ -15,8 +15,11 @@ different sums can flip an intermediate by one unit in the last place.
 The int8 kernels are held at the JAX package's kernel-vs-mirror levels: a
 conv chain within 2 x its largest activation scale, an RDB block with
 float32 output within 1e-4, a chain of blocks within 4 x its largest
-scale (one int8 step of a requantised intermediate may flip); the
-per-channel ``int32_taps`` and per-column dx-major schedules bit-exact. The
+scale (one int8 step of a requantised intermediate may flip); and
+bit-exact: the int8 dense layer (``csrc/conv_int8.cu``) in all three tap
+schedules, at ragged H, W and cin and at many tiles per block, the conv
+chains through it, and the input quantisation (``csrc/quantize_i8.cu``).
+The int8 slice's launches per frame are counted. The
 RDB under the TPU kernels' rounding contracts (``ops.rdb_taps``) is held at
 the RDB's levels and, in bfloat16, to a mean|Δ| against its contract's plain
 version at most ¼ of that against any other contract's; the planar d2s
@@ -29,7 +32,9 @@ import pytest
 import torch
 
 from nerve_tpu_torch import ops
+from nerve_tpu_torch.diag import conv as diag_conv
 from nerve_tpu_torch.diag import probe
+from nerve_tpu_torch.models import quantize_sr, streaming_prime, streaming_step
 from nerve_tpu_torch.ops import (
     conv_chain,
     conv_chain_int8,
@@ -297,6 +302,135 @@ def test_rdb_int8_schemes(cuda, scheme):
             == n0["rdb_int8_int32_taps"] + (2 if int32_taps else 0))
     ref = rdb_int8.rdb_chain_int8_plain(x.bfloat16(), qchain, None, int32_taps, dx_major)
     assert got.dtype == torch.bfloat16 and torch.equal(got, ref)
+
+
+# name -> (batch, H, W, C, L, G): ragged H, W and cin (C + i G not a multiple
+# of 32) at a few tiles per block; the flagship's widths over many tiles per
+# block (the ping-pong rings turn over many times).
+INT8_RDB_SHAPES = {
+    "ragged": (2, 13, 37, 24, 3, 16),
+    "many_tiles": (1, 136, 520, 64, 5, 32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["per_column", "per_column_dx", "int32_taps"])
+@pytest.mark.parametrize("shape", list(INT8_RDB_SHAPES))
+def test_rdb_int8_bit_exact(cuda, scheme, shape):
+    """The int8 dense layer in each tap schedule: every block with float32
+    output and the chain in bfloat16, bit-exact against the plain version."""
+    bsz, h, w, c, layers, growth = INT8_RDB_SHAPES[shape]
+    int32_taps, dx_major = scheme == "int32_taps", scheme == "per_column_dx"
+    g = torch.Generator().manual_seed(15)
+    plist = [_rdb_params(g, c, cuda, layers, growth) for _ in range(2)]
+    x = _rand(g, bsz, h, w, c, std=0.5).to(cuda)
+    scales = rdb_int8.calibrate_rdb_chain(x, plist)
+    qchain = rdb_int8.quantize_rdb_chain(plist, scales, per_channel=int32_taps)
+    for blk in qchain:
+        got = ops.rdb_chain_int8_apply(x, (blk,), torch.float32, int32_taps, dx_major)
+        ref = rdb_int8.rdb_chain_int8_plain(x, (blk,), torch.float32, int32_taps, dx_major)
+        assert torch.equal(got, ref)
+    n0 = dict(dispatch.launches)
+    got = ops.rdb_chain_int8_apply(x.bfloat16(), qchain, None, int32_taps, dx_major)
+    assert dispatch.launches["quantize_i8"] == n0["quantize_i8"] + 1
+    ref = rdb_int8.rdb_chain_int8_plain(x.bfloat16(), qchain, None, int32_taps, dx_major)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["head", "list_1x1", "flow_like", "wide_many_tiles"])
+def test_conv_chain_int8_bit_exact(cuda, site):
+    """int8 chains, bit-exact: a 3-channel frame, a ragged list with a 1x1
+    layer, the flow head's widths (81 -> 128 walks four N tiles), and the
+    attention site's 192 -> 64 -> 3 over many tiles per block."""
+    g = torch.Generator().manual_seed(16)
+    shape, parts, widths, kinds = {
+        "head": ((1, 13, 37), [3], [3, 64], [3]),
+        "list_1x1": ((2, 9, 35), [4, 4, 4], [12, 40, 20, 3, 12], [3, 1, 3, 3]),
+        "flow_like": ((2, 11, 17), [81], [81, 128, 64, 32, 2], [3, 3, 3, 3]),
+        "wide_many_tiles": ((1, 96, 333), [64, 64, 64], [192, 64, 3], [3, 3]),
+    }[site]
+    xs = [_rand(g, *shape, c).to(cuda, torch.bfloat16) for c in parts]
+    params = _conv_params(g, widths, kinds, cuda)
+    qchain = conv_chain_int8.quantize_conv_chain(
+        params, conv_chain_int8.calibrate_conv_chain(xs, params))
+    for out_dtype in (torch.float32, torch.bfloat16):
+        n0 = dict(dispatch.launches)
+        got = ops.conv_chain_int8_apply(xs, qchain, widths[-1], out_dtype=out_dtype)
+        assert dispatch.launches["conv_chain_int8"] == n0["conv_chain_int8"] + len(kinds)
+        assert dispatch.launches["quantize_i8"] == n0["quantize_i8"] + 1
+        ref = conv_chain_int8.conv_chain_int8_plain(xs, *qchain, widths[-1], out_dtype)
+        assert got.dtype == out_dtype and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_i8_bit_exact(cuda, dtype):
+    """Values at and next to (k + 0.5)·s for k of both parities and signs,
+    some of which round otherwise under x · (1 / s) than under x / s,
+    values past +-127, three ragged parts into their slots, pad channels
+    zero, the rest untouched."""
+    g = torch.Generator().manual_seed(17)
+    s = torch.tensor(0.3, device=cuda)
+    parts = []
+    for c in (3, 16, 9):
+        v = _rand(g, 2, 7, 11, c, std=60.0)
+        ties = (torch.randint(-140, 140, v.shape, generator=g) + 0.5) * 0.3
+        r = torch.rand(v.shape, generator=g)
+        ties = torch.where(r < 0.2, ties, torch.nextafter(ties, torch.where(
+            r < 0.35, torch.tensor(float("inf")), torch.tensor(float("-inf")))))
+        v = torch.where(r < 0.5, ties, v)
+        parts.append(v.to(cuda, dtype))
+    x = torch.cat(parts, -1).float()
+    assert bool((torch.round(x * (1 / s)) != torch.round(x / s)).any())
+    out = torch.full((2, 7, 11, 48), 5, dtype=torch.int8, device=cuda)
+    ref = conv_chain_int8.quantize_into_plain(parts, s, out.clone(), 32)
+    n0 = dispatch.launches["quantize_i8"]
+    conv_chain_int8.quantize_into(parts, s, out, 32)
+    assert dispatch.launches["quantize_i8"] == n0 + 1
+    assert torch.equal(out, ref)
+    assert bool((out[..., 28:32] == 0).all() and (out[..., 32:] == 5).all())
+    assert bool((out[..., :28].abs() == 127).any())
+
+
+@pytest.mark.cuda
+def test_int8_slice_launches(cuda):
+    """The flagship's int8 configuration (64 features, 8 RDBs) on a small
+    frame: per frame 10 conv_chain_int8, 8 rdb_int8 and 6 quantize_i8
+    launches (five chain sites and the RDB stack), no bf16 conv or RDB, and
+    no weight packing once the first step has packed each int8 state. The
+    model is built inside inference mode, as serving code may build it."""
+    with torch.inference_mode():
+        model = diag_conv.seeded_model(cuda, 0, quantized=True, quantized_chains=True)
+    g = torch.Generator().manual_seed(18)
+    video = [torch.rand((1, 32, 48, 3), generator=g).to(cuda) for _ in range(5)]
+    quantize_sr(model, torch.stack(video[:3], dim=1), device=cuda)
+    with torch.inference_mode():
+        carry = streaming_prime(model, video[0])
+        carry, _out = streaming_step(model, carry, video[1], "packed")
+        dispatch.reset_launches()
+        for frame in video[2:]:
+            carry, out = streaming_step(model, carry, frame, "packed")
+    torch.cuda.synchronize()
+    n = len(video) - 2
+    want = {"conv_chain_int8": 10 * n, "rdb_int8": 8 * n, "quantize_i8": 6 * n,
+            "conv_chain": 0, "rdb": 0, "rdb_int8_int32_taps": 0}
+    assert {k: dispatch.launches[k] for k in want} == want
+    assert dispatch.packs["int8"] == 0
+    assert out.shape == (1, 64, 96 * 3) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flow_warp_card_matches_cpu(cuda, dtype):
+    """The warp is the same PyTorch on both devices, and the card gives the
+    CPU's bits (which the CPU tests hold to JAX), flow leaving the frame
+    included."""
+    g = torch.Generator().manual_seed(19)
+    feat = _rand(g, 2, 37, 53, 24).to(dtype)
+    flow = _rand(g, 2, 37, 53, 2, std=5.0).to(dtype)
+    got = ops.flow_warp(feat.to(cuda), flow.to(cuda))
+    assert torch.equal(got.cpu(), ops.flow_warp(feat, flow))
 
 
 @pytest.mark.cuda

@@ -14,6 +14,10 @@ Inputs and weights are made with numpy from a seed and handed to both.
   from a rounding boundary may flip one int8 step; no case here does, so
   the measured difference is 0.
 * One Pallas interpret-mode case per int8 kernel at a tiny shape.
+* The input quantisation (``quantize_into``, the plain version of
+  ``csrc/quantize_i8.cu``): bit-equal to the JAX package's in-graph
+  expression (``conv_chain_int8.py:284-290``), ties to even, clipping at
+  ±127, list parts in their channel slots, pad channels zero.
 """
 
 import jax
@@ -120,6 +124,46 @@ def test_conv_chain_int8_list_quantised_at_one_scale():
     q = cc8.quantize_conv_chain(params, cc8.calibrate_conv_chain(xs, params))
     assert torch.equal(ops.conv_chain_int8_apply(xs, q, 3),
                        ops.conv_chain_int8_apply(torch.cat(xs, -1), q, 3))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scale", [0.25, 0.3])
+def test_quantize_into_matches_jax(dtype, scale):
+    """Three parts of 3, 8 and 5 channels into a 32-channel int8 buffer, of
+    which the leading 24 are written (16 data, 8 zero) and the rest kept.
+    The values hold (k + 0.5)·s for k of both parities and both signs, and
+    values past ±127·s. At s = 0.25 these are exact ties; at s = 0.3 they
+    and their float32 neighbours fall on both sides of .5, and some of them
+    round otherwise under x · (1 / s) than under the reference's x / s."""
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    rng = np.random.default_rng(21)
+    s = np.float32(scale)
+    near = ((np.arange(-140, 140) + 0.5) * scale).astype(np.float32)
+    near = np.concatenate([near, np.nextafter(near, np.float32(np.inf)),
+                           np.nextafter(near, np.float32(-np.inf))])
+    near = np.array(jnp.asarray(near, jdt).astype(jnp.float32))
+    by_reciprocal = np.rint(near * (np.float32(1) / s)) != np.rint(near / s)
+    near = np.concatenate([near[by_reciprocal], rng.permutation(near[~by_reciprocal])])
+    v = rng.standard_normal(2 * 4 * 5 * 16) * 40 * s
+    v[:min(near.size, v.size)] = near[:v.size]
+    v = np.array(jnp.asarray(rng.permutation(v).reshape(2, 4, 5, 16), jdt).astype(jnp.float32))
+    parts = [v[..., :3], v[..., 3:11], v[..., 11:]]
+    # The reference's quantisation (nerve_tpu/ops/conv_chain_int8.py:284-290).
+    ref = [np.asarray(jnp.clip(jnp.round(jnp.asarray(p, jdt).astype(jnp.float32) / s),
+                               -127.0, 127.0).astype(jnp.int8)) for p in parts]
+    ref = np.concatenate(ref, axis=-1)
+    assert np.any(np.abs(ref) == 127) and np.any(ref % 2 == 0)
+    if scale != 0.25:
+        assert np.any(np.clip(np.rint(v * (np.float32(1) / s)), -127, 127) != ref)
+    out = torch.full((2, 4, 5, 32), 7, dtype=torch.int8)
+    got = cc8.quantize_into([torch.from_numpy(np.ascontiguousarray(p)).to(tdt) for p in parts],
+                            torch.tensor(s), out, 24)
+    assert got is out
+    np.testing.assert_array_equal(out[..., :16].numpy(), ref)
+    assert not out[..., 16:24].any() and bool((out[..., 24:] == 7).all())
+    with pytest.raises(ValueError):
+        cc8.quantize_into([torch.zeros(2, 4, 5, 20)], torch.tensor(s), out, 16)
 
 
 @pytest.mark.parametrize("geometry", [(16, 5, 32), (12, 3, 8)])

@@ -40,6 +40,7 @@ from nerve_tpu_torch.models import (
     streaming_step,
 )
 from nerve_tpu_torch.models.bridge import _flatten
+from nerve_tpu_torch.ops import dispatch
 from test_torch_port_models import randomize
 
 CFG = dict(scale_factor=2, num_features=16, num_residual_blocks=2,
@@ -84,6 +85,24 @@ def test_int8_streaming_step_packed_matches_jax(setup):
                                      "packed")
     assert tuple(got.shape) == (1, 32, 48 * 3)
     _check(got, ref)
+
+
+def test_int8_states_are_packed_once(setup):
+    """Each int8 state (five chain sites, the RDB stack) packs its weights
+    for the kernels once, at its first serving call, and keeps them: loading
+    the variables drops the packs, the first step packs all six, later steps
+    none."""
+    model = copy.deepcopy(setup["tmodel"])
+    load_flax_variables(model, setup["qvars"])
+    frames = [torch.from_numpy(f) for f in setup["video"][0, :4, None]]
+    dispatch.reset_launches()
+    carry = streaming_prime(model, frames[0])
+    carry, _ = streaming_step(model, carry, frames[1], "packed")
+    assert dispatch.packs["int8"] == 6
+    dispatch.reset_launches()
+    for frame in frames[2:]:
+        carry, _ = streaming_step(model, carry, frame, "packed")
+    assert dispatch.packs["int8"] == 0
 
 
 def test_int8_batched_forward_matches_jax(setup):
