@@ -6,13 +6,13 @@
 Phases, each of which raises on failure and prints its wall time:
 
 1. Build: ``nvcc`` compiles ``nerve_tpu_torch/csrc`` for ``sm_90a``; the
-   dense-convolution kernels' SASS must hold warpgroup products and no
-   ``mma.sync`` products: ``HGMMA`` and no ``HMMA`` for the bf16 layer,
-   ``IGMMA`` and no ``IMMA`` for the int8 layer, each instance printed with
-   its ptxas registers and spills.
+   dense-convolution and RDB-fusion kernels' SASS must hold warpgroup
+   products and no ``mma.sync`` products: ``HGMMA`` and no ``HMMA`` for the
+   bf16 layer and fusion, ``IGMMA`` and no ``IMMA`` for the int8 layer and
+   fusion, each instance printed with its ptxas registers and spills.
 2. Device: the probe of ``diag.probe`` (a matrix product and the probe
    kernel), then the card's name and power limit (``nvidia-smi``); TF32 off.
-3. Kernels: each of the nine CUDA kernels against its plain PyTorch version
+3. Kernels: each of the eleven CUDA kernels against its plain PyTorch version
    on the card, at a small ragged shape and at the serving shapes of the
    flagship path (1080p → 2160p) and, for the depthwise layer and the planar
    chain, of the lightweight body at 1080p, with median times from CUDA events, the
@@ -24,7 +24,12 @@ Phases, each of which raises on failure and prints its wall time:
    at a ragged shape; the input quantisation (``quantize_i8``) is bit-exact
    on values at and next to (k + 0.5)·s, at a scale where x · (1 / s)
    would round some of them otherwise, and past ±127; its serving shape is the
-   attention site's three 64-channel frames. The int8 kernels' library
+   attention site's three 64-channel frames. The RDB fusions also run alone
+   (``rdb_lff``, ``rdb_lff_i8``: 224 → 64 channels at 1080p; at the small
+   shape from a wider buffer into an offset slot), the int8 one bit-exact
+   on values at .5 steps of the next block's scale; their library times
+   are ``torch.matmul`` and ``torch._int_mm`` of the same products. The
+   int8 kernels' library
    time is ``torch._int_mm``'s for the same int32 products (products only,
    ``diag.conv.int_mm_yardstick``). Then the bf16 dense
    convolution per conv-chain site and per dense layer of one RDB block,
@@ -34,15 +39,17 @@ Phases, each of which raises on failure and prints its wall time:
    1, flow at half resolution, bfloat16) with seeded weights, primed on
    frame 0 of a seeded 1080×1920 video and stepped with
    ``streaming_step(..., "packed")``. Every bf16 kernel's launch counter must
-   grow in that run. The same frames then run with the plain versions on
-   the card, and the two outputs must agree.
+   grow in that run (8 ``rdb`` and 8 ``rdb_lff`` per step). The same frames
+   then run with the plain versions on the card, and the two outputs must
+   agree.
 5. int8 slice: the same seeded model built with ``quantized=True,
    quantized_chains=True``, calibrated by ``quantize_sr`` on a (1, 3, 270,
    480, 3) crop of the video, then streamed the same way. ``rdb_int8``,
    ``conv_chain_int8``, ``quantize_i8``, ``correlation`` and ``d2s_packed``
-   must launch (10 ``conv_chain_int8``, 8 ``rdb_int8`` and 6 ``quantize_i8``
-   per step, one more head and quantisation for the prime) and ``rdb`` and
-   ``conv_chain`` must not; each of the six int8 states must pack its
+   must launch (10 ``conv_chain_int8``, 8 ``rdb_int8``, 8 ``rdb_lff_i8`` and
+   6 ``quantize_i8`` per step, one more head and quantisation for the
+   prime) and ``rdb``, ``rdb_lff`` and ``conv_chain`` must not; each of the
+   six int8 states must pack its
    weights once in the run (no frame after the first packs); the output
    must agree with the int8 plain
    versions' and lie within ``INT8_MIN_PSNR`` dB of the bf16 slice's.
@@ -71,7 +78,10 @@ Phases, each of which raises on failure and prints its wall time:
    frame: ``planar_chain`` must launch once per frame and nothing else, and
    its result must agree with the per-layer body's.
 
-The probe (``diag.probe``) runs first in the device phase. The line before
+``--profile DIR`` profiles two steps of each slice (``diag.conv.profile``:
+idle share, kernels by time, the RDB fusions', dense layers' and ATen
+copies' time and launches per step). The probe (``diag.probe``) runs first
+in the device phase. The line before
 the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result. It imports no JAX.
@@ -116,19 +126,16 @@ from nerve_tpu_torch.diag.conv import (
     measure,
     nbytes,
     pixels,
+    profile,
     rdb_int8_shapes,
     run_frames,
     run_stream,
     seeded_lightweight,
     seeded_model,
     serving_inputs,
+    streamer,
 )
-from nerve_tpu_torch.models import (
-    LightweightSuperResolution,
-    quantize_sr,
-    streaming_prime,
-    streaming_step,
-)
+from nerve_tpu_torch.models import LightweightSuperResolution, quantize_sr
 from nerve_tpu_torch.ops import (
     _build,
     conv_chain,
@@ -188,6 +195,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, plain version)
                         "nerve_tpu/ops/conv_chain_int8.py:135", conv_chain_int8_plain_op),
     "rdb_int8": ("nerve_tpu_torch/csrc/rdb_int8.cu", "nerve_tpu/ops/rdb_int8.py:245",
                  rdb_chain_int8_plain_op),
+    # The RDB fusions alone (each also runs inside its RDB above).
+    "rdb_lff": ("nerve_tpu_torch/csrc/rdb.cu", "nerve_tpu/ops/rdb.py:121", rdb.lff_plain),
+    "rdb_lff_i8": ("nerve_tpu_torch/csrc/rdb_int8.cu", "nerve_tpu/ops/rdb_int8.py:245",
+                   rdb_int8.lff_plain_i8),
     # The int8 paths' input quantisation: an XLA fusion in the JAX package.
     "quantize_i8": ("nerve_tpu_torch/csrc/quantize_i8.cu", "nerve_tpu/ops/conv_chain_int8.py:284",
                     conv_chain_int8.quantize_into_plain),
@@ -204,7 +215,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, plain version)
 # bf16 kernels: limits (float32, bfloat16) relative to max|plain|.
 BF16_LIMITS = {"d2s_packed": (0.0, 0.0), "correlation": (1e-5, 1e-2),
                "conv_chain": (1e-4, 2.4e-2), "conv_chain_dw3": (1e-4, 2.4e-2),
-               "planar_chain": (1e-4, 2.4e-2), "rdb": (1e-4, 1.56e-2)}
+               "planar_chain": (1e-4, 2.4e-2), "rdb": (1e-4, 1.56e-2),
+               "rdb_lff": (1e-4, 1.56e-2)}
 CHAIN_KERNELS = ("conv_chain", "conv_chain_dw3", "planar_chain")
 # The ops the model calls, and the plain version each is replaced by in
 # the reference runs.
@@ -251,17 +263,21 @@ def rdb_ops(plist, npix: int) -> int:
                for params in plist for p in params if p.ndim > 1)
 
 
-# Dense-convolution kernels -> (their warpgroup product, the mma.sync product
-# they must not issue), as cuobjdump -sass names them.
+# Dense-convolution and RDB-fusion kernels -> (their warpgroup product, the
+# mma.sync product they must not issue), as cuobjdump -sass names them.
 SASS_PRODUCTS = {"conv_wgmma_kernel": ("HGMMA", "HMMA"),
-                 "conv_i8_wgmma_kernel": ("IGMMA", "IMMA")}
+                 "conv_i8_wgmma_kernel": ("IGMMA", "IMMA"),
+                 "lff_wgmma_kernel": ("HGMMA", "HMMA"),
+                 "lff_i8_wgmma_kernel": ("IGMMA", "IMMA")}
 
 
 def check_sass(lib: Path) -> None:
     """The dense-convolution kernels (``conv_wgmma_kernel<K, N>``, bf16;
-    ``conv_i8_wgmma_kernel<K, N, MODE>``, int8) must issue warpgroup
-    products and no ``mma.sync`` products (``SASS_PRODUCTS``): print each
-    instance's counts and its ptxas registers and spills."""
+    ``conv_i8_wgmma_kernel<K, N, MODE>``, int8) and the RDB fusions
+    (``lff_wgmma_kernel``, ``lff_i8_wgmma_kernel``) must each be in the
+    library and issue warpgroup products and no ``mma.sync`` products
+    (``SASS_PRODUCTS``): print each instance's counts and its ptxas
+    registers and spills."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -270,7 +286,7 @@ def check_sass(lib: Path) -> None:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            kernel = next((k for k in SASS_PRODUCTS if re.search(rf"\d{k}I", name)), None)
+            kernel = next((k for k in SASS_PRODUCTS if re.search(rf"\d{k}[IE]", name)), None)
         elif kernel:
             gmma, mma = SASS_PRODUCTS[kernel]
             c = counts.setdefault(name, [kernel, 0, 0])
@@ -282,7 +298,8 @@ def check_sass(lib: Path) -> None:
         usage = dict.fromkeys(u.split(":", 1)[-1].strip() for i, line in enumerate(log)
                               if "Compiling entry function" in line and name in line
                               for u in log[i + 1:i + 5] if "spill" in u or "Used" in u)
-        print(f"sass {kernel}<{args}>: {gmma} {SASS_PRODUCTS[kernel][0]}, {mma} "
+        label = f"{kernel}<{args}>" if args else kernel
+        print(f"sass {label}: {gmma} {SASS_PRODUCTS[kernel][0]}, {mma} "
               f"{SASS_PRODUCTS[kernel][1]}; {'; '.join(usage)}", flush=True)
     found = {kernel for kernel, *_ in counts.values()}
     if found != set(SASS_PRODUCTS) or any(gmma == 0 or mma for _k, gmma, mma in counts.values()):
@@ -342,6 +359,14 @@ def bf16_kernel_cases(dev, dt, serving: bool):
         return lambda: [fn(a, [e]) for a, e in zip(dw_in, dws)]
 
     libs = [(xx, cudnn_chain(p, dt)) for xx, p in sites]
+    # The fusion alone: the leading C + L·G channels of the buffer in; at
+    # the small shape from a wider buffer into an offset slot.
+    lc, lcat, lpad, lcoff = (FEATURES, FEATURES + 160, 0, 0) if serving else (16, 176, 8, 8)
+    cat = act(*xr.shape[:3], lcat + lpad) if serving else act(2, 13, 37, lcat + lpad)
+    lw = _randn(g, (lcat, lc), lcat ** -0.5).to(dev, dt)
+    lb = _randn(g, (lc,), 0.1).to(dev)
+    lout = torch.zeros((*cat.shape[:3], lc + lcoff), dtype=dt, device=dev)
+    lflat = cat.view(-1, lcat) if serving else None
     corr_ops = 2 * 81 * f1.shape[-1] * pixels(f1)
     out_corr = math.prod(f1.shape[:3]) * 81 * f1.element_size()
     site_bytes = sum(chain_bytes(xx, p, dt) for xx, p in sites)
@@ -372,6 +397,12 @@ def bf16_kernel_cases(dev, dt, serving: bool):
                 lambda: rdb.rdb_chain_plain(xr, plist), None,
                 bound(rdb_ops(plist, pixels(xr)), 2 * nbytes(xr) + nbytes(*sum(plist, [])),
                       "bf16")),
+        "rdb_lff": (f"{label}: fusion {lcat}->{lc}",
+                    lambda: rdb.lff_launch(cat, lw, lb, lout, lcoff)[..., lcoff:],
+                    lambda: rdb.lff_plain(cat, lw, lb),
+                    (lambda: torch.matmul(lflat, lw)) if serving else None,
+                    bound(2 * lcat * lc * pixels(cat),
+                          pixels(cat) * (lcat + lc) * dt.itemsize + nbytes(lw, lb), "bf16")),
     }
 
 
@@ -428,6 +459,23 @@ def int8_kernel_cases(dev, dt, serving: bool):
             ties = torch.where(r < 0.2, ties, torch.nextafter(ties, torch.where(
                 r < 0.35, torch.tensor(float("inf")), torch.tensor(float("-inf")))))
             qparts.append(torch.where(r < 0.5, ties, v).to(dev, dt))
+    # The int8 fusion alone, into the next block's int8 buffer (at the small
+    # shape a wider one, at an offset): in channels [0, C / 2) the factors
+    # and biases are 0 and s_in = s_next / 2, so v = x · s_in sits on .5
+    # steps of s_next.
+    fc, fcat = (FEATURES, FEATURES + 160) if serving else (16, 176)
+    fshape = (1, H, W) if serving else (2, 13, 37)
+    fpad, fcoff = (0, 0) if serving else (16, 16)
+    fx = torch.randint(-127, 128, (*fshape, fcat + fpad), generator=g, dtype=torch.int8).to(dev)
+    fw = torch.randint(-127, 128, (fcat, fc), generator=g, dtype=torch.int8)
+    fimage = conv_chain_int8.pack_i8_weights(fw, 1, fc, fc, rdb_int8.LFF_N_TILE).to(dev)
+    fdq, fbias = torch.rand(fc, generator=g) * 1e-4, _randn(g, (fc,), 0.1)
+    fdq[:fc // 2], fbias[:fc // 2] = 0.0, 0.0
+    fdq, fbias, fw = fdq.to(dev), fbias.to(dev), fw.to(dev)
+    fs_next = torch.tensor([0.3], device=dev)
+    fs_in = fs_next / 2
+    fout = torch.zeros((*fshape, fcat + fpad), dtype=torch.int8, device=dev)
+    fnpix = math.prod(fshape)
     qc = sum(t.shape[-1] for t in qparts)
     qbufs = [torch.empty((*qparts[0].shape[:3], -(-qc // 16) * 16), dtype=torch.int8,
                          device=dev) for _ in range(2)]
@@ -449,6 +497,14 @@ def int8_kernel_cases(dev, dt, serving: bool):
             for k, blk in enumerate(qrdb[:2])],
             lambda: [rdb_int8.rdb_chain_int8_plain(xr.float(), (blk,), torch.float32)
                      for blk in qrdb[:2]], 0.0, None, None),
+        "rdb_lff_i8": (f"{label}: fusion {fcat}->{fc}, int8 out",
+                       lambda: (rdb_int8.lff_launch_i8(fx, fcat, fimage, fdq, fbias, fs_in,
+                                                       fs_next, fout, fcoff),
+                                fout[..., fcoff:fcoff + fc])[1],
+                       lambda: rdb_int8.lff_plain_i8(fx, fw, fdq, fbias, fs_in[0], fs_next[0]),
+                       0.0,
+                       bound(2 * fcat * fc * fnpix, fnpix * (fcat + fc) + fimage.numel(), "int8"),
+                       int_mm_yardstick([(1, fcat, fc, fnpix)], dev)),
         "quantize_i8": (f"{label}: {len(qparts)} parts, {qc} channels",
                         lambda: conv_chain_int8.quantize_into(qparts, s_q, qbufs[0],
                                                               qbufs[0].shape[-1]),
@@ -677,8 +733,13 @@ def against_plain(model, video, outs, max_abs, mean_abs, run=run_stream):
 
 def run_slice(model, video, card: str):
     outs, times, launches, peak = drive(model, video, ("d2s_packed", "correlation",
-                                                       "conv_chain", "rdb"),
-                                        ("conv_chain_int8", "rdb_int8", "quantize_i8"))
+                                                       "conv_chain", "rdb", "rdb_lff"),
+                                        ("conv_chain_int8", "rdb_int8", "quantize_i8",
+                                         "rdb_lff_i8"))
+    steps = len(video) - 1
+    if launches["rdb_lff"] != launches["rdb"] or launches["rdb"] != 8 * steps:
+        raise AssertionError(f"bf16 slice launches {launches}: expected 8 rdb and 8 rdb_lff "
+                             "per step")
     ptimes = against_plain(model, video, outs, SLICE_MAX_ABS, SLICE_MEAN_ABS)
     print(f"slice 1080p->2160p bf16 packed: {statistics.median(times):.1f} ms/frame with "
           f"kernels, {statistics.median(ptimes):.1f} ms/frame plain (median of {len(times)} "
@@ -703,14 +764,15 @@ def run_int8_slice(model, video, bf16_outs, beside, card: str):
     scheme = "per-channel int32_taps" if rdb_int8.PER_CHANNEL_INT8 else "per-column"
     int32 = ("rdb_int8_int32_taps",)
     outs, times, launches, peak = drive(
-        model, video, ("d2s_packed", "correlation", "conv_chain_int8", "rdb_int8", "quantize_i8")
-        + (int32 if rdb_int8.PER_CHANNEL_INT8 else ()),
-        ("conv_chain", "rdb") + (() if rdb_int8.PER_CHANNEL_INT8 else int32))
-    # Per step five chain sites (10 layers) and the RDB stack (8 blocks),
-    # each quantising its input once; the prime runs the head once more.
+        model, video, ("d2s_packed", "correlation", "conv_chain_int8", "rdb_int8", "quantize_i8",
+                       "rdb_lff_i8") + (int32 if rdb_int8.PER_CHANNEL_INT8 else ()),
+        ("conv_chain", "rdb", "rdb_lff") + (() if rdb_int8.PER_CHANNEL_INT8 else int32))
+    # Per step five chain sites (10 layers) and the RDB stack (8 blocks, 8
+    # fusions), each quantising its input once; the prime runs the head
+    # once more.
     steps = len(video) - 1
     want = {"conv_chain_int8": 10 * steps + 1, "rdb_int8": 8 * steps,
-            "quantize_i8": 6 * steps + 1}
+            "rdb_lff_i8": 8 * steps, "quantize_i8": 6 * steps + 1}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"int8 slice launches {launches}, expected {want}")
     # Each int8 state (five chain sites, the RDB stack) packs its weights at
@@ -776,8 +838,8 @@ def run_lightweight_slice(dev, video, card: str):
     nframes = len(video)
     outs, times, launches, peak = drive(
         model, video, ("conv_chain", "conv_chain_dw3", "d2s_packed"),
-        ("correlation", "rdb", "conv_chain_int8", "rdb_int8", "planar_chain", "quantize_i8"),
-        run_frames)
+        ("correlation", "rdb", "conv_chain_int8", "rdb_int8", "planar_chain", "quantize_i8",
+         "rdb_lff", "rdb_lff_i8"), run_frames)
     want = {"conv_chain": 6 * nframes, "conv_chain_dw3": 4 * nframes, "d2s_packed": nframes}
     if any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"lightweight launches {launches}, expected {want}")
@@ -841,59 +903,6 @@ def run_diag_paths(dev):
     return rdb_launches, d2s_launches
 
 
-# --------------------------------------------------------------------------- #
-# Profile (--profile)
-# --------------------------------------------------------------------------- #
-def streamer(model):
-    """A frame-by-frame step function for the flagship, primed on the first call."""
-    carry = []
-
-    def step(frame):
-        if not carry:
-            carry.append(streaming_prime(model, frame))
-            return
-        carry[0], _ = streaming_step(model, carry[0], frame, "packed")
-    return step
-
-
-def profile(steppers, video, out_dir: Path) -> None:
-    """torch.profiler over 2 steps after 3 warm-up steps of each step
-    function; the device's busy time is the union of kernel intervals in the
-    trace."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for name, step in steppers.items():
-        for frame in video[:3]:
-            step(frame)
-        torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for frame in video[3:5]:
-                step(frame)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        trace = out_dir / f"trace_{name}.json"
-        prof.export_chrome_trace(str(trace))
-        kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
-                   if e.get("cat") == "kernel"]
-        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
-        busy, end = 0.0, -math.inf
-        for a, b in spans:
-            if b > end:
-                busy += b - max(a, end)
-                end = b
-        by_name = {}
-        for e in kernels:
-            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-        total = sum(by_name.values())
-        print(f"profile {name}: wall {wall:.1f} ms over 2 steps, device busy "
-              f"{busy / 1e3:.1f} ms, idle share {1 - busy / 1e3 / wall:.3f}, "
-              f"{len(kernels)} kernels", flush=True)
-        for k, d in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
-            print(f"  {d / total:6.1%} {d / 2e3:8.3f} ms/step  {k[:110]}", flush=True)
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -952,6 +961,7 @@ def main() -> int:
                     video, Path(args.profile))
     # Each kernel's launches from the run of the path that carries it.
     runs = {"conv_chain_int8": launches8, "rdb_int8": launches8, "quantize_i8": launches8,
+            "rdb_lff_i8": launches8,
             "conv_chain_dw3": launches_lw, "planar_chain": launches_planar,
             "rdb_int8_int32_taps": launches8pc, "rdb_taps": launches_rdb,
             "d2s_packed_planar": launches_d2s, "probe": launches_probe}

@@ -6,6 +6,8 @@
 // dense-layer kernel of the residual dense block (see rdb.cu): the layer
 // reads the leading `cin` channels of a wider buffer and writes its output
 // into a channel slot of another, so an RDB grows its concatenation in place.
+// Its 1x1 form with the fusion's epilogue (`lff_wgmma_kernel`, N = 64) is
+// the RDB's local feature fusion (see rdb.cu).
 //
 // Numerics follow the reference formulation `_chain_xla`
 // (conv_chain.py:411-443): float32 accumulation, the sum rounded to the
@@ -49,7 +51,9 @@
 //     otherwise each stage carries its chunk's weights.
 //   * Persistent blocks, one per SM, walk the (batch, row band, column,
 //     N-tile) tiles; the epilogue rounds, adds the bias, applies relu,
-//     rounds and stores into the output slot, masking the edges.
+//     rounds and stores into the output slot, masking the edges (the
+//     fusion's epilogue: float32 bias, times res_scale, plus the residual
+//     channel read from device memory, rounded once).
 // float32 (kept exact, no TF32) runs as FP32 FMAs on the CUDA cores: each
 // thread keeps a 4-pixel column x 8-channel block of sums in registers,
 // reusing a column segment of the input for the three vertical taps.
@@ -94,12 +98,19 @@ struct Cfg {
   static constexpr int W_BYTES = K * K * NT * 32;   // one chunk's weights, every tap
 };
 
+// The epilogue of a tile: a dense layer's, or the RDB fusion's (rdb.cu).
+enum { EPI_CONV = 0, EPI_LFF = 1 };
+
 struct WgParams {
   int nx, xcs, nchunks, cout, ocs, ocoff, h, w, relu, pair;
   int tiles_x, tiles_y, ncot, ntiles, resident, stages;
   const uint8_t* wpack;
   const float* bias;
   __nv_bfloat16* out;
+  // EPI_LFF: the block input's channels (the residual) are the leading
+  // cout of the input x0, channel stride xcs.
+  const __nv_bfloat16* res;
+  float res_scale;
 };
 
 __device__ __forceinline__ void decode_tile(const WgParams& p, int t, int& cot, int& tx,
@@ -112,11 +123,22 @@ __device__ __forceinline__ void decode_tile(const WgParams& p, int t, int& cot, 
   b = t / p.tiles_y;
 }
 
-template <int K, int NT>
-__global__ void __launch_bounds__(WG_THREADS, 1)
-    conv_wgmma_kernel(const __grid_constant__ CUtensorMap m0,
-                      const __grid_constant__ CUtensorMap m1,
-                      const __grid_constant__ CUtensorMap m2, const WgParams p) {
+// Store channels co, co + 1 of one pixel (a pair where the layout allows).
+__device__ __forceinline__ void store2(const WgParams& p, __nv_bfloat16* o, int co, float v0,
+                                       float v1) {
+  if (p.pair && co + 1 < p.cout) {
+    *reinterpret_cast<__nv_bfloat162*>(o + co) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    if (co < p.cout) o[co] = __float2bfloat16_rn(v0);
+    if (co + 1 < p.cout) o[co + 1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// The body of conv_wgmma_kernel and lff_wgmma_kernel: m0..m2 are the input
+// tensors' maps (kernel parameters, __grid_constant__).
+template <int K, int NT, int EPI>
+__device__ __forceinline__ void conv_wgmma(const CUtensorMap* m0, const CUtensorMap* m1,
+                                           const CUtensorMap* m2, const WgParams& p) {
   using C = Cfg<K, NT>;
   extern __shared__ __align__(1024) uint8_t smem[];
   // Each consumer warpgroup has a ring of p.stages stages of its own.
@@ -148,7 +170,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       for (int c = 0; c < p.nchunks; ++c)
         nt_bulk_load(wres + c * C::W_BYTES, p.wpack + (size_t)c * C::W_BYTES, C::W_BYTES, wbar);
     }
-    const CUtensorMap* maps[3] = {&m0, &m1, &m2};
+    const CUtensorMap* maps[3] = {m0, m1, m2};
     int rstage[CONSUMERS] = {}, rphase[CONSUMERS] = {};
     for (int t = blockIdx.x, k = 0; t < p.ntiles; t += gridDim.x, ++k) {
       int cot, tx, ty, b;
@@ -224,26 +246,62 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 #pragma unroll
     for (int r = 0; r < C::TH; ++r) {
       const int gy = y0 + r;
+      if constexpr (EPI == EPI_LFF) {
+        // (sum + bias) * res_scale + the block input's channel, in float32,
+        // rounded once. The row's residual pairs are all loaded first (the
+        // TMA loads of this tile just brought them into L2).
+        __nv_bfloat162 xr[2][NT / 8];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int gx = xb + 8 * i;
-        if (gy >= p.h || gx >= p.w) continue;
-        __nv_bfloat16* o = p.out + ((size_t)(b * p.h + gy) * p.w + gx) * p.ocs + p.ocoff;
+        for (int i = 0; i < 2; ++i) {
+          const int gx = xb + 8 * i;
+          const bool ok = gy < p.h && gx < p.w;
+          const __nv_bfloat16* x = p.res + ((size_t)(b * p.h + gy) * p.w + gx) * p.xcs;
 #pragma unroll
-        for (int j = 0; j < NT / 8; ++j) {
-          const int co = co0 + 8 * j;
-          float v[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float bias = co + e < p.cout ? p.bias[co + e] : 0.f;
-            v[e] = __bfloat162float(__float2bfloat16_rn(acc[r][4 * j + 2 * i + e])) + bias;
-            if (p.relu) v[e] = fmaxf(v[e], 0.f);
+          for (int j = 0; j < NT / 8; ++j) {
+            const int co = co0 + 8 * j;
+            xr[i][j] = __floats2bfloat162_rn(0.f, 0.f);
+            if (ok && co + 1 < p.cout)
+              xr[i][j] = __ldg(reinterpret_cast<const __nv_bfloat162*>(x + co));
+            else if (ok && co < p.cout)
+              xr[i][j].x = x[co];
           }
-          if (p.pair && co + 1 < p.cout) {
-            *reinterpret_cast<__nv_bfloat162*>(o + co) = __floats2bfloat162_rn(v[0], v[1]);
-          } else {
-            if (co < p.cout) o[co] = __float2bfloat16_rn(v[0]);
-            if (co + 1 < p.cout) o[co + 1] = __float2bfloat16_rn(v[1]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int gx = xb + 8 * i;
+          if (gy >= p.h || gx >= p.w) continue;
+          __nv_bfloat16* o = p.out + ((size_t)(b * p.h + gy) * p.w + gx) * p.ocs + p.ocoff;
+#pragma unroll
+          for (int j = 0; j < NT / 8; ++j) {
+            const int co = co0 + 8 * j;
+            const float2 x = __bfloat1622float2(xr[i][j]);
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float bias = co + e < p.cout ? p.bias[co + e] : 0.f;
+              v[e] = __fadd_rn(__fmul_rn(__fadd_rn(acc[r][4 * j + 2 * i + e], bias), p.res_scale),
+                               e == 0 ? x.x : x.y);
+            }
+            store2(p, o, co, v[0], v[1]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int gx = xb + 8 * i;
+          if (gy >= p.h || gx >= p.w) continue;
+          __nv_bfloat16* o = p.out + ((size_t)(b * p.h + gy) * p.w + gx) * p.ocs + p.ocoff;
+#pragma unroll
+          for (int j = 0; j < NT / 8; ++j) {
+            const int co = co0 + 8 * j;
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float bias = co + e < p.cout ? p.bias[co + e] : 0.f;
+              v[e] = __bfloat162float(__float2bfloat16_rn(acc[r][4 * j + 2 * i + e])) + bias;
+              if (p.relu) v[e] = fmaxf(v[e], 0.f);
+            }
+            store2(p, o, co, v[0], v[1]);
           }
         }
       }
@@ -252,9 +310,32 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 }
 
 template <int K, int NT>
-cudaError_t launch_wgmma_cfg(const void* const* xs, int nx, int xcs, int cin, const void* w,
-                             const float* bias, void* out, int ocs, int ocoff, int cout, int b,
-                             int h, int wd, int relu, cudaStream_t stream) {
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    conv_wgmma_kernel(const __grid_constant__ CUtensorMap m0,
+                      const __grid_constant__ CUtensorMap m1,
+                      const __grid_constant__ CUtensorMap m2, const WgParams p) {
+  conv_wgmma<K, NT, EPI_CONV>(&m0, &m1, &m2, p);
+}
+
+// The RDB fusion (rdb.cu): a 1x1 layer over the block's concatenation with
+// the fusion's epilogue.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    lff_wgmma_kernel(const __grid_constant__ CUtensorMap m0, const WgParams p) {
+  conv_wgmma<1, NT_LFF_N_TILE, EPI_LFF>(&m0, &m0, &m0, p);
+}
+
+// A launch of conv_wgmma<K, NT, .>: its parameters, tensor maps, dynamic
+// shared memory and grid.
+struct WgLaunch {
+  WgParams p;
+  CUtensorMap maps[3];
+  int smem, smem_max, grid;
+};
+
+template <int K, int NT>
+cudaError_t plan_wgmma(const void* const* xs, int nx, int xcs, int cin, const void* w,
+                       const float* bias, void* out, int ocs, int ocoff, int cout, int b, int h,
+                       int wd, int relu, WgLaunch& l) {
   using C = Cfg<K, NT>;
   NtDeviceLimits lim;
   cudaError_t err = nt_device_limits(lim);
@@ -262,7 +343,7 @@ cudaError_t launch_wgmma_cfg(const void* const* xs, int nx, int xcs, int cin, co
   const NtEncodeTiled encode = nt_encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
 
-  WgParams p;
+  WgParams& p = l.p;
   p.nx = nx;
   p.xcs = xcs;
   p.nchunks = (cin + 15) / 16;
@@ -282,6 +363,8 @@ cudaError_t launch_wgmma_cfg(const void* const* xs, int nx, int xcs, int cin, co
   p.wpack = static_cast<const uint8_t*>(w);
   p.bias = bias;
   p.out = static_cast<__nv_bfloat16*>(out);
+  p.res = static_cast<const __nv_bfloat16*>(xs[0]);
+  p.res_scale = 0.f;
 
   // The weights stay resident where they fit beside two stages of each ring.
   const int avail = lim.smem - BAR_BYTES;
@@ -291,15 +374,16 @@ cudaError_t launch_wgmma_cfg(const void* const* xs, int nx, int xcs, int cin, co
   p.stages = std::min(MAX_STAGES,
                       (avail - (p.resident ? wbytes : 0)) / (CONSUMERS * stage_bytes));
   if (p.stages < 2) return cudaErrorInvalidValue;
-  const int smem = BAR_BYTES + (p.resident ? wbytes : 0) + CONSUMERS * p.stages * stage_bytes;
+  l.smem = BAR_BYTES + (p.resident ? wbytes : 0) + CONSUMERS * p.stages * stage_bytes;
+  l.smem_max = lim.smem;
+  l.grid = (int)std::min<long long>(ntiles, lim.sms);
 
   // One map per input tensor: (C, W, H, B), innermost first; a box is one
   // 16-channel chunk of the haloed tile, 32-byte rows in the 32-byte
   // swizzle. One input reads channels [0, cin).
-  CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
     if (i >= nx) {
-      maps[i] = maps[0];
+      l.maps[i] = l.maps[0];
       continue;
     }
     const cuuint64_t dims[4] = {(cuuint64_t)(nx == 1 ? cin : xcs), (cuuint64_t)wd,
@@ -307,17 +391,28 @@ cudaError_t launch_wgmma_cfg(const void* const* xs, int nx, int xcs, int cin, co
     const cuuint64_t strides[3] = {(cuuint64_t)xcs * 2, (cuuint64_t)wd * xcs * 2,
                                    (cuuint64_t)h * wd * xcs * 2};
     const cuuint32_t box[4] = {16, C::IW, C::IH, 1}, estr[4] = {1, 1, 1, 1};
-    if (encode(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(xs[i]), dims,
+    if (encode(&l.maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(xs[i]), dims,
                strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return cudaErrorInvalidValue;
   }
-  err = cudaFuncSetAttribute(conv_wgmma_kernel<K, NT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, lim.smem);
+  return cudaSuccess;
+}
+
+template <int K, int NT>
+cudaError_t launch_wgmma_cfg(const void* const* xs, int nx, int xcs, int cin, const void* w,
+                             const float* bias, void* out, int ocs, int ocoff, int cout, int b,
+                             int h, int wd, int relu, cudaStream_t stream) {
+  WgLaunch l;
+  cudaError_t err =
+      plan_wgmma<K, NT>(xs, nx, xcs, cin, w, bias, out, ocs, ocoff, cout, b, h, wd, relu, l);
   if (err != cudaSuccess) return err;
-  const int grid = (int)std::min<long long>(ntiles, lim.sms);
-  conv_wgmma_kernel<K, NT><<<grid, WG_THREADS, smem, stream>>>(maps[0], maps[1], maps[2], p);
+  err = cudaFuncSetAttribute(conv_wgmma_kernel<K, NT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem_max);
+  if (err != cudaSuccess) return err;
+  conv_wgmma_kernel<K, NT><<<l.grid, WG_THREADS, l.smem, stream>>>(l.maps[0], l.maps[1],
+                                                                     l.maps[2], l.p);
   return cudaGetLastError();
 }
 
@@ -462,6 +557,22 @@ cudaError_t launch_fma(const void* x, int xcs, int cin, const float* w,
 }
 
 }  // namespace
+
+cudaError_t nt_lff_bf16_wgmma(const void* cat, int xcs, int ccat, const void* w,
+                              const float* bias, void* out, int ocs, int ocoff, int c, int b,
+                              int h, int wd, float res_scale, cudaStream_t stream) {
+  const void* xs[3] = {cat, cat, cat};
+  WgLaunch l;
+  cudaError_t err = plan_wgmma<1, NT_LFF_N_TILE>(xs, 1, xcs, ccat, w, bias, out, ocs, ocoff, c,
+                                                 b, h, wd, 0, l);
+  if (err != cudaSuccess) return err;
+  l.p.res_scale = res_scale;
+  err = cudaFuncSetAttribute(lff_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             l.smem_max);
+  if (err != cudaSuccess) return err;
+  lff_wgmma_kernel<<<l.grid, WG_THREADS, l.smem, stream>>>(l.maps[0], l.p);
+  return cudaGetLastError();
+}
 
 extern "C" int nt_conv2d(const void* x0, const void* x1, const void* x2, int nx,
                          int x_cstride, int cin, const void* w, const float* bias, void* out,

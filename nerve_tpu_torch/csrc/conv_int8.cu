@@ -6,7 +6,9 @@
 // the dense-layer kernel of the int8 residual dense block that replaces
 // nerve_tpu/ops/rdb_int8.py `_rdb_int8_kernel` (see rdb_int8.cu): the layer
 // reads the leading `cin` channels of the block's int8 concatenation buffer
-// and requantises its output into its own channel slot.
+// and requantises its output into its own channel slot. Its 1x1 form with
+// the fusion's epilogue (`lff_i8_wgmma_kernel`) is the int8 RDB's local
+// feature fusion (see rdb_int8.cu).
 //
 // Numerics are those of the reference formulations `conv_chain_int8_xla`
 // (conv_chain_int8.py:392-425) and `rdb_chain_int8_xla` (rdb_int8.py:537-562):
@@ -115,12 +117,22 @@ struct Cfg {
   static constexpr int W_BYTES = K * K * NT * CHUNK;  // one chunk's weights, every tap
 };
 
+// The epilogue of a tile: a dense layer's, or the int8 RDB fusion's
+// (rdb_int8.cu).
+enum { EPI_CONV = 0, EPI_LFF = 1 };
+
 struct Params {
   int nchunks, cout, cpad, ocs, ocoff, h, w, relu, odt, pair;
   int tiles_x, tiles_y, ncot, ntiles, resident, stages, param_bytes;
   const uint8_t* wpack;
   const float *dq, *bias, *inv;
   void* out;
+  // EPI_LFF: the block input's int8 channels (the residual) are the leading
+  // cout of the input, channel stride rcs; its scale s_in[0]; the next
+  // block's input scale s_next[0] (int8 output).
+  const int8_t* res;
+  int rcs;
+  const float *s_in, *s_next;
 };
 
 __device__ __forceinline__ void decode_tile(const Params& p, int t, int& cot, int& tx,
@@ -143,11 +155,13 @@ __device__ __forceinline__ float2 dequant2_bf16(int s0, int s1, float2 d) {
 // co0 + 8 j + e), converted to the output type and stored. Every value is
 // converted before the first store, and the stores are predicated, so that
 // the conversions of a row overlap; a tile whose N tile is whole (`full`)
-// stores channel pairs, an edge tile channel by channel.
-template <int NT, int ODT>
+// stores channel pairs, an edge tile channel by channel. int8 output is
+// requantised by multiplication with the channel's reciprocal sinv[n], or
+// with DIV by true division by `div` (the fusion's next input scale).
+template <int NT, int ODT, bool DIV = false>
 __device__ __forceinline__ void store_row(const Params& p, const float (&o)[2][NT / 8][2],
                                           size_t pix0, bool row_ok, int xb, int co0, bool full,
-                                          const float* sinv) {
+                                          const float* sinv, float div = 1.f) {
   using T = typename std::conditional<ODT == NT_I8, int8_t,
                                       typename std::conditional<ODT == NT_BF16, __nv_bfloat16,
                                                                 float>::type>::type;
@@ -161,7 +175,9 @@ __device__ __forceinline__ void store_row(const Params& p, const float (&o)[2][N
         const float v = o[i][j][e];
         if constexpr (ODT == NT_I8)
           q[i][j][e] = static_cast<int8_t>(__float2int_rn(fminf(
-              fmaxf(rintf(__fmul_rn(v, sinv[co0 + 8 * j + e])), -127.f), 127.f)));
+              fmaxf(rintf(DIV ? __fdiv_rn(v, div) : __fmul_rn(v, sinv[co0 + 8 * j + e])),
+                    -127.f),
+              127.f)));
         else if constexpr (ODT == NT_BF16)
           q[i][j][e] = __float2bfloat16_rn(v);
         else
@@ -248,9 +264,69 @@ __device__ __forceinline__ void epilogue(const Params& p,
   }
 }
 
-template <int K, int NT, int MODE>
-__global__ void __launch_bounds__(WG_THREADS, 1)
-    conv_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
+// The fusion's epilogue (a 1x1 layer's single set, TH rows):
+//   v = (lff * ldq[n] + lbias[n]) * 0.2 + x[p, n] * s_in
+// with x the block input's int8 channel (the residual, read from device
+// memory, L2-hot behind this tile's TMA loads; a row's pairs all loaded
+// before use), each operation rounded to nearest; int8 output divides by
+// the next block's input scale.
+template <int NT, int TH>
+__device__ __forceinline__ void lff_epilogue(const Params& p, const int (&acc)[TH][NT / 2],
+                                             int b, int ty, int xb, int cot, int co0,
+                                             const float* sdq, const float* sbias, float sx,
+                                             float snext) {
+  const bool full = p.pair && (cot + 1) * NT <= p.cout;
+#pragma unroll
+  for (int r = 0; r < TH; ++r) {
+    const int gy = ty * TH + r;
+    const bool row_ok = gy < p.h;
+    const size_t pix0 = (size_t)(b * p.h + gy) * p.w + xb;
+    char2 xr[2][NT / 8];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool ok = row_ok && xb + 8 * i < p.w;
+      const int8_t* x = p.res + (pix0 + 8 * i) * p.rcs;
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j) {
+        const int co = co0 + 8 * j;
+        xr[i][j] = make_char2(0, 0);
+        if (ok && co + 1 < p.cout)
+          xr[i][j] = __ldg(reinterpret_cast<const char2*>(x + co));
+        else if (ok && co < p.cout)
+          xr[i][j].x = x[co];
+      }
+    }
+    float v[2][NT / 8][2];
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      const float2 d = *reinterpret_cast<const float2*>(&sdq[co0 + 8 * j]);
+      const float2 bias = *reinterpret_cast<const float2*>(&sbias[co0 + 8 * j]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        v[i][j][0] = __fadd_rn(
+            __fmul_rn(__fadd_rn(__fmul_rn(__int2float_rn(acc[r][4 * j + 2 * i]), d.x), bias.x),
+                      0.2f),
+            __fmul_rn(static_cast<float>(xr[i][j].x), sx));
+        v[i][j][1] = __fadd_rn(
+            __fmul_rn(__fadd_rn(__fmul_rn(__int2float_rn(acc[r][4 * j + 2 * i + 1]), d.y),
+                                bias.y),
+                      0.2f),
+            __fmul_rn(static_cast<float>(xr[i][j].y), sx));
+      }
+    }
+    if (p.odt == NT_I8)
+      store_row<NT, NT_I8, true>(p, v, pix0, row_ok, xb, co0, full, sbias, snext);
+    else if (p.odt == NT_BF16)
+      store_row<NT, NT_BF16>(p, v, pix0, row_ok, xb, co0, full, sbias);
+    else
+      store_row<NT, NT_F32>(p, v, pix0, row_ok, xb, co0, full, sbias);
+  }
+}
+
+// The body of conv_i8_wgmma_kernel and lff_i8_wgmma_kernel; `map` is the
+// input's tensor map (a kernel parameter, __grid_constant__).
+template <int K, int NT, int MODE, int EPI>
+__device__ __forceinline__ void conv_i8_wgmma(const CUtensorMap* map, const Params& p) {
   using C = Cfg<K, NT, MODE>;
   extern __shared__ __align__(1024) uint8_t smem[];
   // Each consumer warpgroup has a ring of p.stages stages of its own.
@@ -281,7 +357,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
   for (int co = tid; co < p.cpad; co += WG_THREADS) {
     sbias[co] = co < p.cout ? p.bias[co] : 0.f;
-    sinv[co] = co < p.cout ? p.inv[co] : 0.f;
+    sinv[co] = co < p.cout && EPI == EPI_CONV ? p.inv[co] : 0.f;
   }
   __syncthreads();
 
@@ -306,7 +382,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         nt_mbar_wait(&empty[stage], phase ^ 1);
         nt_mbar_expect_tx(&full[stage], C::BOX_BYTES + (p.resident ? 0 : C::W_BYTES));
         uint8_t* st = ring + stage * stage_bytes;
-        nt_tma_load_4d(st, &map, &full[stage], c * CHUNK, x0, y0, b);
+        nt_tma_load_4d(st, map, &full[stage], c * CHUNK, x0, y0, b);
         if (!p.resident)
           nt_bulk_load(st + C::IN_BYTES, p.wpack + ((size_t)cot * p.nchunks + c) * C::W_BYTES,
                        C::W_BYTES, &full[stage]);
@@ -326,6 +402,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const int cw = wg - 1, warp = (tid % 128) / 32, lane = tid % 32;
   // acc[SETS * TH]: tap t's set (SETS = 9, TH = 1) or row r's (SETS = 1).
   int acc[C::SETS * C::TH][NT / 2] = {};
+  float sx = 0.f, snext = 1.f;
+  if constexpr (EPI == EPI_LFF) {
+    sx = *p.s_in;
+    if (p.odt == NT_I8) snext = *p.s_next;
+  }
   if (p.resident) nt_mbar_wait(wbar, 0);
   // A stage is handed back once the products that read it are done: one
   // chunk later, so that this chunk's products queue behind the last's.
@@ -364,15 +445,39 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     nt_wgmma_wait<0>();
     if (lane == 0) nt_mbar_arrive(&empty[held]);
     held = -1;
-    epilogue<K, NT, MODE>(p, acc, b, ty, tx * WG_TW + warp * 16 + lane / 4, cot,
-                          cot * NT + 2 * (lane % 4), sdq, sbias, sinv);
+    const int xb = tx * WG_TW + warp * 16 + lane / 4, co0 = cot * NT + 2 * (lane % 4);
+    if constexpr (EPI == EPI_LFF)
+      lff_epilogue<NT, C::TH>(p, acc, b, ty, xb, cot, co0, sdq, sbias, sx, snext);
+    else
+      epilogue<K, NT, MODE>(p, acc, b, ty, xb, cot, co0, sdq, sbias, sinv);
   }
 }
 
 template <int K, int NT, int MODE>
-cudaError_t launch_cfg(const void* x, int xcs, int cin, const void* w, const float* dq,
-                       const float* bias, const float* inv, void* out, int ocs, int ocoff,
-                       int cout, int b, int h, int wd, int relu, int odt, cudaStream_t stream) {
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    conv_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
+  conv_i8_wgmma<K, NT, MODE, EPI_CONV>(&map, p);
+}
+
+// The int8 RDB fusion (rdb_int8.cu): a 1x1 layer over the block's int8
+// concatenation with the fusion's epilogue.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    lff_i8_wgmma_kernel(const __grid_constant__ CUtensorMap map, const Params p) {
+  conv_i8_wgmma<1, NT_LFF_I8_N_TILE, NT_TAPS_DY, EPI_LFF>(&map, p);
+}
+
+// A launch of conv_i8_wgmma<K, NT, MODE, .>: its parameters, tensor map,
+// dynamic shared memory and grid.
+struct I8Launch {
+  Params p;
+  CUtensorMap map;
+  int smem, smem_max, grid;
+};
+
+template <int K, int NT, int MODE>
+cudaError_t plan_i8(const void* x, int xcs, int cin, const void* w, const float* dq,
+                    const float* bias, const float* inv, void* out, int ocs, int ocoff, int cout,
+                    int b, int h, int wd, int relu, int odt, I8Launch& l) {
   using C = Cfg<K, NT, MODE>;
   NtDeviceLimits lim;
   cudaError_t err = nt_device_limits(lim);
@@ -380,7 +485,7 @@ cudaError_t launch_cfg(const void* x, int xcs, int cin, const void* w, const flo
   const NtEncodeTiled encode = nt_encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
 
-  Params p;
+  Params& p = l.p;
   p.nchunks = (cin + CHUNK - 1) / CHUNK;
   p.cout = cout;
   p.ncot = (cout + NT - 1) / NT;
@@ -404,6 +509,9 @@ cudaError_t launch_cfg(const void* x, int xcs, int cin, const void* w, const flo
   p.bias = bias;
   p.inv = inv;
   p.out = out;
+  p.res = static_cast<const int8_t*>(x);
+  p.rcs = xcs;
+  p.s_in = p.s_next = nullptr;
 
   // The weights stay resident where they fit beside two stages of each ring.
   const int avail = lim.smem - BAR_BYTES - p.param_bytes;
@@ -412,25 +520,36 @@ cudaError_t launch_cfg(const void* x, int xcs, int cin, const void* w, const flo
   const int stage_bytes = ceil_to(C::IN_BYTES + (p.resident ? 0 : C::W_BYTES), 1024);
   p.stages = std::min(MAX_STAGES, (avail - (p.resident ? wbytes : 0)) / (CONSUMERS * stage_bytes));
   if (p.stages < 2) return cudaErrorInvalidValue;
-  const int smem = BAR_BYTES + p.param_bytes + (p.resident ? wbytes : 0) +
-                   CONSUMERS * p.stages * stage_bytes;
+  l.smem = BAR_BYTES + p.param_bytes + (p.resident ? wbytes : 0) +
+           CONSUMERS * p.stages * stage_bytes;
+  l.smem_max = lim.smem;
+  l.grid = (int)std::min<long long>(ntiles, lim.sms);
 
   // (C, W, H, B) bytes, innermost first; a box is one 32-channel chunk of
   // the haloed tile, 32-byte rows in the 32-byte swizzle. Channels from
   // cin on read as zeros.
-  CUtensorMap map;
   const cuuint64_t dims[4] = {(cuuint64_t)cin, (cuuint64_t)wd, (cuuint64_t)h, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)xcs, (cuuint64_t)wd * xcs, (cuuint64_t)h * wd * xcs};
   const cuuint32_t box[4] = {CHUNK, C::IW, C::IH, 1}, estr[4] = {1, 1, 1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x), dims, strides, box,
+  if (encode(&l.map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x), dims, strides, box,
              estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(conv_i8_wgmma_kernel<K, NT, MODE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, lim.smem);
+  return cudaSuccess;
+}
+
+template <int K, int NT, int MODE>
+cudaError_t launch_cfg(const void* x, int xcs, int cin, const void* w, const float* dq,
+                       const float* bias, const float* inv, void* out, int ocs, int ocoff,
+                       int cout, int b, int h, int wd, int relu, int odt, cudaStream_t stream) {
+  I8Launch l;
+  cudaError_t err = plan_i8<K, NT, MODE>(x, xcs, cin, w, dq, bias, inv, out, ocs, ocoff, cout, b,
+                                         h, wd, relu, odt, l);
   if (err != cudaSuccess) return err;
-  const int grid = (int)std::min<long long>(ntiles, lim.sms);
-  conv_i8_wgmma_kernel<K, NT, MODE><<<grid, WG_THREADS, smem, stream>>>(map, p);
+  err = cudaFuncSetAttribute(conv_i8_wgmma_kernel<K, NT, MODE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem_max);
+  if (err != cudaSuccess) return err;
+  conv_i8_wgmma_kernel<K, NT, MODE><<<l.grid, WG_THREADS, l.smem, stream>>>(l.map, l.p);
   return cudaGetLastError();
 }
 
@@ -450,6 +569,24 @@ cudaError_t launch_k(const void* x, int xcs, int cin, const void* w, const float
 }
 
 }  // namespace
+
+cudaError_t nt_lff_i8_wgmma(const void* cat, int xcs, int ccat, const void* w, const float* ldq,
+                            const float* lbias, const float* s_in, const float* s_next,
+                            void* out, int ocs, int ocoff, int c, int b, int h, int wd, int odt,
+                            cudaStream_t stream) {
+  I8Launch l;
+  cudaError_t err = plan_i8<1, NT_LFF_I8_N_TILE, NT_TAPS_DY>(cat, xcs, ccat, w, ldq, lbias,
+                                                             nullptr, out, ocs, ocoff, c, b, h,
+                                                             wd, 0, odt, l);
+  if (err != cudaSuccess) return err;
+  l.p.s_in = s_in;
+  l.p.s_next = s_next;
+  err = cudaFuncSetAttribute(lff_i8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             l.smem_max);
+  if (err != cudaSuccess) return err;
+  lff_i8_wgmma_kernel<<<l.grid, WG_THREADS, l.smem, stream>>>(l.map, l.p);
+  return cudaGetLastError();
+}
 
 extern "C" int nt_conv2d_i8(const void* x, int x_cstride, int cin, const void* w,
                             const float* dq, const float* bias, const float* inv,

@@ -83,11 +83,18 @@ int nt_rdb_taps_conv(const void* x, int x_cstride, int cin, const float* w,
 // o = 2 * a over n float32 values (the device-health probe).
 int nt_probe_scale2(const float* a, float* o, int n, void* stream);
 
-// RDB local feature fusion: out = (cat . w + bias) * res_scale + cat[..., :c]
-// with cat (B, H, W, ccat), w (ccat, c), out (B, H, W, c).
-int nt_rdb_lff(const void* cat, int ccat, const float* w, const float* bias,
-               void* out, int c, int b, int h, int w_, float res_scale,
-               int dtype, void* stream);
+// RDB local feature fusion:
+//   out[p, n] = (sum_k cat[p, k] w[k, n] + bias[n]) * res_scale + cat[p, n]
+// in float32, rounded once to the dtype, for channels [0, ccat) of cat
+// (channel stride cat_cstride) into channels [out_coff, out_coff + c) of
+// out (channel stride out_cstride, not cat's storage). NT_F32: w float32
+// (ccat, c). NT_BF16: cat_cstride a multiple of 8, cat 16-byte aligned, and
+// w the bf16 image of ops/conv_chain.py `pack_conv_weights` of the
+// (1, 1, ccat, c) matrix at the fusion's N tile (ops/rdb.py `LFF_N_TILE`).
+int nt_rdb_lff(const void* cat, int cat_cstride, int ccat, const void* w,
+               const float* bias, void* out, int out_cstride, int out_coff,
+               int c, int b, int h, int w_, float res_scale, int dtype,
+               void* stream);
 
 // One SAME 3x3 or 1x1 int8 conv layer (static post-training quantisation).
 // Reads int8 channels [0, cin) of x (channel stride x_cstride, a multiple of
@@ -121,16 +128,20 @@ int nt_quantize_i8(const void* x0, const void* x1, const void* x2, int nx,
 
 // int8 RDB local feature fusion and residual. cat is int8 (B, H, W, .) with
 // channel stride cat_cstride (a multiple of 16), of which channels
-// [0, ccat) are read; lw is int8 (c, ceil16(ccat)), zero beyond ccat.
+// [0, ccat) are read; lw is the int8 image of ops/conv_chain_int8.py
+// `pack_i8_weights` of the fusion's (ccat, c) matrix at the int8 fusion's N
+// tile (ops/rdb_int8.py `LFF_N_TILE`); cat and lw 16-byte aligned.
 //   v = (lff * ldq[n] + lbias[n]) * 0.2 + cat[p, n] * s_in[0],
-//   lff = sum_k cat[p, k] * lw[n, k] (int32).
-// out_dtype NT_I8 writes clip(rint(v / s_next[0]), -127, 127) into int8
-// channels [0, c) of out (channel stride out_cstride); NT_BF16 and NT_F32
-// write v rounded to that type (s_next unused).
+//   lff = sum_k cat[p, k] * lw[k, n] (int32).
+// out_dtype NT_I8 writes clip(rint(v / s_next[0]), -127, 127) (an IEEE
+// division) into int8 channels [out_coff, out_coff + c) of out (channel
+// stride out_cstride, not cat's storage); NT_BF16 and NT_F32 write v
+// rounded to that type (s_next unused).
 int nt_rdb_lff_i8(const void* cat, int cat_cstride, int ccat, const void* lw,
                   const float* ldq, const float* lbias, const float* s_in,
-                  const float* s_next, void* out, int out_cstride, int c,
-                  int b, int h, int w_, int out_dtype, void* stream);
+                  const float* s_next, void* out, int out_cstride,
+                  int out_coff, int c, int b, int h, int w_, int out_dtype,
+                  void* stream);
 
 const char* nt_error_string(int err);
 
@@ -143,9 +154,8 @@ const char* nt_error_string(int err);
 #include <stdint.h>
 
 // Tensor-core building blocks (sm_80+): ldmatrix of four 8x8 b16 matrices
-// (8 rows of 16 bytes each) from shared memory, one bf16 m16n8k16 product
-// accumulated in float32, and one int8 m16n8k32 product accumulated in int32
-// (rdb_int8.cu's fusion).
+// (8 rows of 16 bytes each) from shared memory and one bf16 m16n8k16 product
+// accumulated in float32 (planar_chain.cu, rdb_taps.cu).
 __device__ __forceinline__ unsigned nt_smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -160,14 +170,6 @@ __device__ __forceinline__ void nt_mma_bf16(float (&d)[4], const unsigned (&a)[4
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void nt_mma_s8(int (&d)[4], const unsigned (&a)[4],
-                                          unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -415,6 +417,19 @@ inline NtEncodeTiled nt_encode_tiled() {
   }();
   return fn;
 }
+
+// The RDB fusions on the dense layers' warpgroup kernels: conv_chain.cu's
+// and conv_int8.cu's 1x1 layer with the fusion's epilogue, launched by
+// nt_rdb_lff (rdb.cu) and nt_rdb_lff_i8 (rdb_int8.cu) after their checks.
+constexpr int NT_LFF_N_TILE = 64;     // output channels of a bf16 fusion tile
+constexpr int NT_LFF_I8_N_TILE = 32;  // output channels of an int8 fusion tile
+cudaError_t nt_lff_bf16_wgmma(const void* cat, int xcs, int ccat, const void* w,
+                              const float* bias, void* out, int ocs, int ocoff, int c, int b,
+                              int h, int wd, float res_scale, cudaStream_t stream);
+cudaError_t nt_lff_i8_wgmma(const void* cat, int xcs, int ccat, const void* w, const float* ldq,
+                            const float* lbias, const float* s_in, const float* s_next,
+                            void* out, int ocs, int ocoff, int c, int b, int h, int wd, int odt,
+                            cudaStream_t stream);
 
 struct NtDeviceLimits {
   int sms, smem;  // SMs; shared memory a block may opt in to

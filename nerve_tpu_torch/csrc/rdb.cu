@@ -4,26 +4,40 @@
 // Together with the direct convolution of conv_chain.cu this replaces
 // nerve_tpu/ops/rdb.py `_rdb_kernel` (reached via `_rdb_pallas_nhwc` <-
 // `rdb_chain_fused` / `rdb_fused`). The TPU kernel kept the whole block in
-// VMEM. Here the wrapper (ops/rdb.py) allocates one (B, H, W, C + 5*32)
-// concatenation buffer per block, copies the input into its leading C
-// channels, and runs the five dense 3x3 layers with `nt_conv2d`, each
-// reading the channels written so far and writing its 32 channels into its
-// own slot; zero padding is per layer by construction, as in `_rdb_xla`
-// (rdb.py:414-436). This kernel then computes
+// VMEM. Here the wrapper (ops/rdb.py) keeps two (B, H, W, C + 5*32)
+// concatenation buffers per stack call: the stack's input is copied into
+// channels [0, C) of the first once, the five dense 3x3 layers run
+// `nt_conv2d`, each reading the channels written so far and writing its 32
+// channels into its own slot (zero padding per layer by construction, as in
+// `_rdb_xla`, rdb.py:414-436), and the fusion computes
 //
 //   out[p, n] = (sum_k cat[p, k] * w[k, n] + bias[n]) * res_scale + cat[p, n]
 //
-// in float32 and rounds once to the input dtype.
+// in float32 and rounds once to the dtype, into channels [0, C) of the
+// other buffer: the next block's input (or, after the last block, the
+// stack's output).
 //
-// Bound: at 1080p x 64 features the fusion is 0.06 TFLOP and one read of
-// the 224-channel buffer (0.9 GB in bf16) per block. bfloat16 runs on the
-// tensor cores: a block computes 128 pixels x 64 output channels, each warp
-// one 16-pixel m-tile against eight n8 tiles with mma.sync.m16n8k16, over
-// 32-channel slices staged in shared memory. float32 runs as FP32 FMAs, a
-// block computing 64 pixels x 64 channels with 4 x 4 sums per thread. What
-// the simple design gives up: the concatenation round-trips device memory
-// five times per block (the TPU kernel kept it on chip), and the loads are
-// not overlapped with the math.
+// Bound: bytes. At 1080p x 64 features the fusion reads 448 bytes (the
+// 224-channel bf16 concatenation) and writes 128 a pixel: 1.19 GB, 0.357 ms
+// at 3.35 TB/s, against 0.06 TFLOP of products (0.06 ms at the bf16 peak).
+//
+// bfloat16 runs `lff_wgmma_kernel` (conv_chain.cu): the dense layers'
+// warpgroup kernel as a 1x1 layer with K = ccat, N = 64 (one N tile for the
+// model's 64 channels), and this epilogue. TMA streams the concatenation in
+// 16-channel boxes of a 4 x 64-pixel tile (zero fill past ccat and past the
+// frame's edges) through a ring of up to 8 stages per consumer warpgroup;
+// the weights, packed once per call by ops/conv_chain.py
+// `pack_conv_weights`, stay resident in shared memory (224 x 64 bf16 is
+// 28 KB); persistent blocks walk the tiles, two consumer warpgroups in
+// ping-pong. The epilogue rounds each float32 operation to nearest (no
+// contraction into an FMA) and reads the residual channels from device memory,
+// where they are L2-hot because this tile's TMA loads just fetched them,
+// all of a row's pairs before any use. (Reading them from the staged tile
+// instead would hold the 4 residual stages of 8 through each epilogue,
+// half of the ring that keeps the loads in flight.)
+// float32 (kept exact, no TF32) runs as FP32 FMAs on the CUDA cores, a
+// block computing 64 pixels x 64 channels with 4 x 4 sums per thread over
+// 32-channel slices staged in shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,92 +48,13 @@ namespace {
 
 constexpr int NTHREADS = 256, NT = 64;
 
-// ---------------------------------------------------------------- bfloat16
-
-// Rows of 32 channels padded to 40 (80 bytes): ldmatrix phases hit distinct
-// banks.
-constexpr int MMA_PT = 128, MMA_KC = 32, MMA_KP = 40;
-
-__global__ void __launch_bounds__(NTHREADS)
-    lff_mma_kernel(const __nv_bfloat16* __restrict__ cat, int ccat, int vec,
-                   const float* __restrict__ w, const float* __restrict__ bias,
-                   __nv_bfloat16* __restrict__ out, int c, long long npix,
-                   float res_scale) {
-  __shared__ __align__(16) __nv_bfloat16 sa[MMA_PT][MMA_KP];
-  __shared__ __align__(16) __nv_bfloat16 sw[NT][MMA_KP];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const long long p0 = blockIdx.x * (long long)MMA_PT;
-  const int n0 = blockIdx.y * NT;
-  float acc[NT / 8][4];
-#pragma unroll
-  for (int n = 0; n < NT / 8; ++n)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[n][q] = 0.f;
-
-  for (int k0 = 0; k0 < ccat; k0 += MMA_KC) {
-    __syncthreads();
-    for (int i = tid; i < MMA_PT * (MMA_KC / 8); i += NTHREADS) {
-      const int q = i % (MMA_KC / 8), p = i / (MMA_KC / 8);
-      const long long gp = p0 + p;
-      const int gk = k0 + q * 8;
-      alignas(16) __nv_bfloat16 v[8];
-      *reinterpret_cast<uint4*>(v) = make_uint4(0, 0, 0, 0);
-      if (gp < npix) {
-        const __nv_bfloat16* src = cat + gp * ccat + gk;
-        if (vec && gk + 8 <= ccat) {
-          *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src);
-        } else {
-          for (int k = 0; k < 8 && gk + k < ccat; ++k) v[k] = src[k];
-        }
-      }
-      *reinterpret_cast<uint4*>(&sa[p][q * 8]) = *reinterpret_cast<uint4*>(v);
-    }
-    for (int i = tid; i < MMA_KC * NT; i += NTHREADS) {
-      const int n = i % NT, k = i / NT;
-      const int gk = k0 + k, gn = n0 + n;
-      sw[n][k] = __float2bfloat16_rn((gk < ccat && gn < c) ? w[(long long)gk * c + gn] : 0.f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < MMA_KC / 16; ++ks) {
-      unsigned a[4];
-      nt_ldmatrix_x4(&sa[warp * 16 + lane % 16][ks * 16 + (lane / 16) * 8], a);
-#pragma unroll
-      for (int np = 0; np < NT / 16; ++np) {
-        unsigned bq[4];
-        nt_ldmatrix_x4(&sw[np * 16 + (lane / 16) * 8 + lane % 8][ks * 16 + ((lane / 8) % 2) * 8], bq);
-        nt_mma_bf16(acc[2 * np], a, bq[0], bq[1]);
-        nt_mma_bf16(acc[2 * np + 1], a, bq[2], bq[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const long long p = p0 + warp * 16 + lane / 4 + hf * 8;
-    if (p >= npix) continue;
-#pragma unroll
-    for (int n = 0; n < NT / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int gn = n0 + n * 8 + (lane % 4) * 2 + j;
-        if (gn < c) {
-          const float v = (acc[n][hf * 2 + j] + bias[gn]) * res_scale +
-                          __bfloat162float(cat[p * ccat + gn]);
-          out[p * c + gn] = __float2bfloat16_rn(v);
-        }
-      }
-    }
-  }
-}
-
 // ----------------------------------------------------------------- float32
 
 constexpr int FMA_PT = 64, FMA_KC = 32;
 
 __global__ void __launch_bounds__(NTHREADS)
-    lff_fma_kernel(const float* __restrict__ cat, int ccat, const float* __restrict__ w,
-                   const float* __restrict__ bias, float* __restrict__ out, int c,
+    lff_fma_kernel(const float* __restrict__ cat, int ccs, int ccat, const float* __restrict__ w,
+                   const float* __restrict__ bias, float* __restrict__ out, int ocs, int c,
                    long long npix, float res_scale) {
   __shared__ float sa[FMA_KC][FMA_PT + 1];
   __shared__ float sw[FMA_KC][NT];
@@ -139,7 +74,7 @@ __global__ void __launch_bounds__(NTHREADS)
       const int k = i % FMA_KC, p = i / FMA_KC;
       const long long gp = p0 + p;
       const int gk = k0 + k;
-      sa[k][p] = (gp < npix && gk < ccat) ? cat[gp * ccat + gk] : 0.f;
+      sa[k][p] = (gp < npix && gk < ccat) ? cat[gp * ccs + gk] : 0.f;
     }
     for (int i = tid; i < FMA_KC * NT; i += NTHREADS) {
       const int n = i % NT, k = i / NT;
@@ -168,31 +103,32 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
     for (int l = 0; l < 4; ++l) {
       const int n = n0 + tn + 16 * l;
-      if (n < c) out[p * c + n] = (acc[j][l] + bias[n]) * res_scale + cat[p * ccat + n];
+      if (n < c) out[p * ocs + n] = (acc[j][l] + bias[n]) * res_scale + cat[p * ccs + n];
     }
   }
 }
 
 }  // namespace
 
-extern "C" int nt_rdb_lff(const void* cat, int ccat, const float* w,
-                          const float* bias, void* out, int c, int b, int h,
-                          int w_, float res_scale, int dtype, void* stream) {
+extern "C" int nt_rdb_lff(const void* cat, int cat_cstride, int ccat, const void* w,
+                          const float* bias, void* out, int out_cstride, int out_coff, int c,
+                          int b, int h, int w_, float res_scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long npix = (long long)b * h * w_;
+  if (c < 1 || ccat < c || ccat > cat_cstride || out_coff < 0 || out_coff + c > out_cstride)
+    return (int)cudaErrorInvalidValue;
   if (dtype == NT_BF16) {
-    const dim3 grid((unsigned)((npix + MMA_PT - 1) / MMA_PT), (c + NT - 1) / NT);
-    const int vec = ccat % 8 == 0 && reinterpret_cast<uintptr_t>(cat) % 16 == 0;
-    lff_mma_kernel<<<grid, NTHREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(cat), ccat, vec, w, bias,
-        static_cast<__nv_bfloat16*>(out), c, npix, res_scale);
-    return (int)cudaGetLastError();
+    if (cat_cstride % 8 != 0 || reinterpret_cast<uintptr_t>(cat) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(w) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    return (int)nt_lff_bf16_wgmma(cat, cat_cstride, ccat, w, bias, out, out_cstride, out_coff,
+                                  c, b, h, w_, res_scale, st);
   }
   if (dtype == NT_F32) {
+    const long long npix = (long long)b * h * w_;
     const dim3 grid((unsigned)((npix + FMA_PT - 1) / FMA_PT), (c + NT - 1) / NT);
     lff_fma_kernel<<<grid, NTHREADS, 0, st>>>(
-        static_cast<const float*>(cat), ccat, w, bias, static_cast<float*>(out), c,
-        npix, res_scale);
+        static_cast<const float*>(cat), cat_cstride, ccat, static_cast<const float*>(w), bias,
+        static_cast<float*>(out) + out_coff, out_cstride, c, npix, res_scale);
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;

@@ -27,16 +27,34 @@ bias in the call):
   (products only: one call per 1×1 layer and per 3×3 layer on a pre-built
   int8 im2col matrix, K and N padded to multiples of 8; no im2col, no
   dequantisation), the bound that of int8 (1,979 TOPS);
+* with ``--fusion``, each RDB fusion alone at 1080p (C + L·G = 224 → 64),
+  10 launches back to back on one concatenation buffer, its weights as the
+  serving path hands them over: the bf16 fusion through
+  ``ops.rdb.lff_launch(cat, lw, lb)`` (``csrc/rdb.cu``), beside
+  ``torch.matmul`` of the (npix, 224) × (224, 64) bf16 view (products
+  only); the int8 fusion through ``ops.rdb_int8.lff_launch_i8`` with a
+  block's packed weights into the next block's buffer
+  (``csrc/rdb_int8.cu``), beside ``torch._int_mm`` of the int8 view
+  (products only); each with its bound (bytes: the concatenation read and
+  the output written once);
 * with ``--slices``, ms per frame of the flagship's bf16 and int8 (per
   column and per channel) streaming slices and the lightweight slice,
   seeded as ``chip_smoke.py`` seeds them (median of the timed frames, the
-  first untimed).
+  first untimed);
+* with ``--profile DIR``, a ``torch.profiler`` trace of two steps of the
+  bf16 and int8 (per column) slices (``profile``): wall and device-busy
+  time, the device's idle share, the kernels by time, and per step the
+  time and launches of the RDB fusions (kernel names holding ``lff``), the
+  dense layers and ATen's copy kernels.
 
 It measures the ``nerve_tpu_torch`` that is first on the path and prints
 its location first, so the same file times another checkout's package:
-``PYTHONPATH=OTHER python nerve_tpu_torch/diag/conv.py --slices`` (the
-slices drive the models' public entry points only; ``--int8`` needs this
-checkout's int8 API). The last line is one JSON object of every time.
+``PYTHONPATH=OTHER python nerve_tpu_torch/diag/conv.py --slices --fusion
+--profile DIR`` (the slices drive the models' public entry points only,
+the fusions ``lff_launch(cat, lw, lb)`` and ``lff_launch_i8(cat, ccat,
+block.lw, ldq, lbias, s_in, s_next, out)``, calls that earlier checkouts
+with int8 RDBs take too; ``--int8`` needs this checkout's int8 API). The
+last line is one JSON object of every time.
 """
 
 from __future__ import annotations
@@ -45,6 +63,7 @@ import json
 import math
 import statistics
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -468,12 +487,142 @@ def measure_int8(dev, reps: int, small: bool) -> dict:
     return rows
 
 
+def measure_fusions(dev, reps: int, small: bool, n: int = 10) -> dict:
+    """Each RDB fusion alone (module docstring): ms per launch over ``n``
+    back-to-back launches, the library's products, the bound."""
+    h, w = (18, 70) if small else (H, W)
+    ccat = FEATURES + 5 * GROWTH
+    g = torch.Generator().manual_seed(12)
+    rows = {}
+
+    def row(name, kern, lib, work):
+        ms = _common.median_ms(kern, dev, reps) / n
+        lib_ms = _common.median_ms(lib, dev, reps) / n if lib else None
+        rows[name] = {"ms": ms, "library_ms": lib_ms, "bound_ms": work[0], "bound_by": work[1]}
+        lib_txt = "none" if lib_ms is None else f"{lib_ms:.3f} ms (products only)"
+        print(f"fusion {name:12s} kernel {ms:.3f} ms, library {lib_txt}, bound {work[0]:.3f} ms "
+              f"({work[1]}): {work[0] / ms:.3f} of the bound", flush=True)
+
+    cat = _randn(g, (1, h, w, ccat)).to(dev, torch.bfloat16)
+    lw = _randn(g, (ccat, FEATURES), ccat ** -0.5).to(dev, torch.bfloat16)
+    lb = _randn(g, (FEATURES,), 0.1).to(dev)
+    npix, ops_count = pixels(cat), 2 * ccat * FEATURES * pixels(cat)
+    flat = cat.view(npix, ccat)
+    row("bf16", lambda: [ops.rdb.lff_launch(cat, lw, lb) for _ in range(n)],
+        lambda: [torch.matmul(flat, lw) for _ in range(n)],
+        bound(ops_count, npix * (ccat + FEATURES) * 2 + nbytes(lw, lb), "bf16"))
+    del cat, flat
+    block = _common.rdb_params(g, FEATURES, dev)
+    xcal = _randn(g, (1, min(h, 128), min(w, 256), FEATURES), 0.5).to(dev)
+    qblock = rdb_int8.quantize_rdb_chain([block], rdb_int8.calibrate_rdb_chain(xcal, [block]))[0]
+    image = rdb_int8.packed_block(qblock, FEATURES, 5, GROWTH, False).lw
+    meta = qblock[2]
+    cats = [torch.randint(-127, 128, (1, h, w, ccat), generator=g, dtype=torch.int8).to(dev)
+            for _ in range(2)]
+    flat8 = cats[0].view(npix, ccat)
+    w8 = qblock[0][5][rdb_int8.FEAT_OFF:].t().contiguous().t()
+    row("int8", lambda: [rdb_int8.lff_launch_i8(cats[0], ccat, image, meta[1, :FEATURES],
+                                                meta[1, FEATURES:2 * FEATURES], meta[2, :1],
+                                                meta[2, :1], cats[1]) for _ in range(n)],
+        lambda: [torch._int_mm(flat8, w8) for _ in range(n)],
+        bound(ops_count, npix * (ccat + FEATURES) + image.numel(), "int8"))
+    return rows
+
+
+def streamer(model):
+    """A frame-by-frame step function for the flagship, primed on the first call."""
+    carry = []
+
+    def step(frame):
+        if not carry:
+            carry.append(streaming_prime(model, frame))
+            return
+        carry[0], _ = streaming_step(model, carry[0], frame, "packed")
+    return step
+
+
+# Kernel groups the profile attributes per step, by a word of the kernel's name.
+PROFILE_GROUPS = {"RDB fusions": ("lff",), "dense layers": ("conv_wgmma", "conv_i8_wgmma"),
+                  "ATen copies": ("copy",)}
+
+
+def profile(steppers, video, out_dir: Path) -> dict:
+    """torch.profiler over 2 steps after 3 warm-up steps of each step
+    function; the device's busy time is the union of kernel intervals in the
+    trace. Returns per step function the ms and launches per step of each
+    of ``PROFILE_GROUPS``."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    result = {}
+    for name, step in steppers.items():
+        for frame in video[:3]:
+            step(frame)
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for frame in video[3:5]:
+                step(frame)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        trace = out_dir / f"trace_{name}.json"
+        prof.export_chrome_trace(str(trace))
+        kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
+                   if e.get("cat") == "kernel"]
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+        busy, end = 0.0, -math.inf
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        by_name = {}
+        for e in kernels:
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+        total = sum(by_name.values())
+        print(f"profile {name}: wall {wall:.1f} ms over 2 steps, device busy "
+              f"{busy / 1e3:.1f} ms, idle share {1 - busy / 1e3 / wall:.3f}, "
+              f"{len(kernels)} kernels", flush=True)
+        for k, d in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
+            print(f"  {d / total:6.1%} {d / 2e3:8.3f} ms/step  {k[:110]}", flush=True)
+        groups = {}
+        for group, words in PROFILE_GROUPS.items():
+            hits = [e["dur"] for e in kernels if any(wd in e["name"] for wd in words)]
+            groups[group] = {"ms_per_step": sum(hits) / 2e3, "launches_per_step": len(hits) / 2}
+            print(f"profile {name} {group}: {sum(hits) / 2e3:.3f} ms/step, "
+                  f"{len(hits) / 2:g} launches/step", flush=True)
+        result[name] = {"wall_ms": wall, "busy_ms": busy / 1e3, "kernels": len(kernels),
+                        "groups": groups}
+    return result
+
+
+def profile_slices(dev, h: int, w: int, out_dir: Path) -> dict:
+    """``profile`` of the bf16 and int8 (per column) slices, seeded as
+    ``slices`` seeds them."""
+    g = torch.Generator().manual_seed(1)
+    video = [torch.rand((1, h, w, 3), generator=g).to(dev) for _ in range(STEPS + 1)]
+    calib = torch.stack(video[:3], dim=1)[:, :, :h // 4, :w // 4]
+    model8 = seeded_model(dev, 0, quantized=True, quantized_chains=True)
+    saved = rdb_int8.PER_CHANNEL_INT8
+    rdb_int8.PER_CHANNEL_INT8 = False
+    try:
+        quantize_sr(model8, calib, device=dev)
+        with torch.inference_mode():
+            return profile({"bf16": streamer(seeded_model(dev, 0)), "int8": streamer(model8)},
+                           video, out_dir)
+    finally:
+        rdb_int8.PER_CHANNEL_INT8 = saved
+
+
 def main(argv=None) -> dict:
     p = _common.parser(__doc__.splitlines()[0])
     p.add_argument("--int8", action="store_true",
                    help="also time the int8 dense layer and the input quantisation")
     p.add_argument("--slices", action="store_true",
                    help="also time the bf16, int8 and lightweight slices (ms per frame)")
+    p.add_argument("--fusion", action="store_true",
+                   help="also time each RDB fusion alone (bf16 and int8)")
+    p.add_argument("--profile", metavar="DIR",
+                   help="also profile the bf16 and int8 slices, writing their traces into DIR")
     args = p.parse_args(argv)
     dev = _common.device_of(args)
     print(f"package {nerve_tpu_torch.__file__}", flush=True)
@@ -482,11 +631,19 @@ def main(argv=None) -> dict:
     result = {"cases": measure(dev, args.reps, args.small)}
     if args.int8:
         result["int8"] = measure_int8(dev, args.reps, args.small)
+    if args.fusion:
+        if dev.type != "cuda":
+            raise SystemExit("--fusion times the fusion kernels: run it with --device cuda")
+        result["fusion"] = measure_fusions(dev, args.reps, args.small)
+    h, w = (36, 64) if args.small else (H, W)
     if args.slices:
-        h, w = (36, 64) if args.small else (H, W)
         result["slices"] = slices(dev, h, w)
         print("slices ms/frame " + ", ".join(f"{k} {v:.3f}" for k, v in result["slices"].items()),
               flush=True)
+    if args.profile:
+        if dev.type != "cuda":
+            raise SystemExit("--profile traces the card: run it with --device cuda")
+        result["profile"] = profile_slices(dev, h, w, Path(args.profile))
     print(json.dumps(result))
     return result
 

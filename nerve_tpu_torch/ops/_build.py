@@ -41,10 +41,11 @@ SIGNATURES = {
                        _P)),
     "nt_dwconv3": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "nt_planar_chain": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    "nt_rdb_lff": (_I, (_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P)),
+    "nt_rdb_lff": (_I, (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P)),
     "nt_conv2d_i8": (_I, (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P)),
-    "nt_rdb_lff_i8": (_I, (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_rdb_lff_i8": (_I, (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P)),
     "nt_quantize_i8": (_I, (_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "nt_error_string": (ctypes.c_char_p, (_I,)),
 }

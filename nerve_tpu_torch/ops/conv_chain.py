@@ -94,11 +94,11 @@ def n_tile(cout: int) -> int:
     return next((n for n in N_TILES if cout <= n), N_TILES[-1])
 
 
-def pack_conv_weights(w: torch.Tensor) -> torch.Tensor:
+def pack_conv_weights(w: torch.Tensor, nt: int | None = None) -> torch.Tensor:
     """HWIO weights ``(k, k, cin, cout)`` → the bf16 kernel's image, 1-D bf16.
 
     The image is ``[n-tile][chunk][tap][k half][n / 8][n % 8][k % 8]``: for
-    each N tile of ``n_tile(cout)`` output channels and each 16-channel
+    each N tile of ``nt`` (default ``n_tile(cout)``) output channels and each 16-channel
     input chunk, the k×k taps (row-major) of a 16 × N slice in wgmma's
     K-major core matrices (8 output channels × 8 input channels, 128
     bytes), the chunk's first 8 input channels before its last 8. Input
@@ -107,7 +107,7 @@ def pack_conv_weights(w: torch.Tensor) -> torch.Tensor:
     dtype.
     """
     k, _k, cin, cout = w.shape
-    nt = n_tile(cout)
+    nt = nt or n_tile(cout)
     ncot, nch = -(-cout // nt), -(-cin // CHUNK)
     wp = w.new_zeros((k * k, nch * CHUNK, ncot * nt), dtype=torch.bfloat16)
     wp[:, :cin, :cout] = w.reshape(k * k, cin, cout).to(torch.bfloat16)

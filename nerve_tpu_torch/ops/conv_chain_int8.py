@@ -189,19 +189,20 @@ def n_tile_i8(cout: int) -> int:
     return next((n for n in N_TILES_I8 if cout <= n), N_TILES_I8[-1])
 
 
-def pack_i8_weights(wi: torch.Tensor, taps: int, ncols: int, cout: int) -> torch.Tensor:
+def pack_i8_weights(wi: torch.Tensor, taps: int, ncols: int, cout: int,
+                    nt: int | None = None) -> torch.Tensor:
     """Wire-format rows ``(cin, taps·ncols)`` (column ``tap·ncols + n``) → the
     int8 kernel's image, 1-D int8.
 
     The image is ``[n-tile][chunk][tap][k half][n / 8][n % 8][k % 16]``: for
-    each N tile of ``n_tile_i8(cout)`` output channels and each 32-channel
+    each N tile of ``nt`` (default ``n_tile_i8(cout)``) output channels and each 32-channel
     input chunk, the taps of a 32 × N slice in wgmma's K-major core
     matrices (8 output channels × 16 input channels, 128 bytes), the
     chunk's first 16 input channels before its last 16. Input channels past
     ``cin`` and output channels past ``cout`` are zero.
     """
     cin = wi.shape[0]
-    nt = n_tile_i8(cout)
+    nt = nt or n_tile_i8(cout)
     ncot, nch = -(-cout // nt), -(-cin // CHUNK_I8)
     wp = wi.new_zeros((nch * CHUNK_I8, taps, ncot * nt), dtype=torch.int8)
     wp[:cin, :, :cout] = wi.reshape(cin, taps, ncols)[:, :, :cout]

@@ -9,7 +9,9 @@ fallback: a CUDA call whose kernel does not build or launch raises.
 it launches its kernel and nowhere else, so a run can show that its path
 went through the kernels (see ``chip_smoke.py``). ``rdb_int8_int32_taps``
 counts the int8 RDB blocks that ran the per-channel ``int32_taps`` scheme
-(each also counts under ``rdb_int8``).
+(each also counts under ``rdb_int8``). ``rdb_lff`` and ``rdb_lff_i8`` count
+the RDB fusions' launches (one per block, beside ``rdb`` or ``rdb_int8``;
+``rdb_taps`` blocks also run ``rdb_lff``).
 
 ``packs`` counts the int8 states (a chain, an RDB stack) packed into the
 int8 layer kernel's weight image: host work, no launch. A model packs each
@@ -22,7 +24,7 @@ import torch
 
 KERNELS = ("d2s_packed", "correlation", "conv_chain", "conv_chain_dw3", "rdb",
            "conv_chain_int8", "rdb_int8", "planar_chain", "rdb_int8_int32_taps",
-           "rdb_taps", "d2s_packed_planar", "probe", "quantize_i8")
+           "rdb_taps", "d2s_packed_planar", "probe", "quantize_i8", "rdb_lff", "rdb_lff_i8")
 launches = dict.fromkeys(KERNELS, 0)
 packs = {"int8": 0}
 

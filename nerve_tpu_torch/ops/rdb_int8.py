@@ -39,7 +39,8 @@ A CUDA tensor runs the hand-written kernels: ``nt_quantize_i8``
 block's int8 (B, H, W, C + L·G) concatenation buffer, the dense layers are
 ``nt_conv2d_i8`` (``csrc/conv_int8.cu``, in the tap schedule of the scheme)
 writing into the slots of that buffer, and ``nt_rdb_lff_i8``
-(``csrc/rdb_int8.cu``) fuses and requantises into the next block's buffer.
+(``csrc/rdb_int8.cu``) fuses and requantises into channels [0, C) of the
+other of two buffers (``ops.rdb.stack_plan``), the next block's input.
 The blocks' weights are packed for the kernels by :func:`packed_rdb_chain`:
 a caller that serves a stack many times packs it once and passes the packs
 (the models keep them with their int8 state); without them a call packs at
@@ -58,6 +59,7 @@ import torch.nn.functional as F
 from nerve_tpu_torch.ops import _build, dispatch
 from nerve_tpu_torch.ops.conv_chain import conv_chain_plain
 from nerve_tpu_torch.ops.conv_chain_int8 import (
+    CHUNK_I8,
     QMAX,
     TAPS_DX,
     TAPS_DY,
@@ -71,11 +73,13 @@ from nerve_tpu_torch.ops.conv_chain_int8 import (
     quantize_activation,
     quantize_into,
 )
+from nerve_tpu_torch.ops.rdb import stack_plan
 
 FEAT_OFF = 8  # leading zero rows of the wire format's weight matrices
 GROWTH = 32
 NUM_LAYERS = 5
 RES_SCALE = 0.2
+LFF_N_TILE = 32  # the int8 fusion kernel's output-channel tile (csrc NT_LFF_I8_N_TILE)
 # The scheme switches of the JAX module (rdb_int8.py:67, :75), read at call
 # time. PER_CHANNEL_INT8 must be the same when a model is quantised and when
 # it is served.
@@ -247,18 +251,37 @@ def rdb_chain_int8_plain(x: torch.Tensor, qchain, out_dtype=None, int32_taps=Non
                 f = torch.relu(acc + meta[0, i * growth:(i + 1) * growth])
                 feats.append(torch.clamp(
                     torch.round(f * meta[3, i * growth:(i + 1) * growth]), -QMAX, QMAX))
-            lff = int_products(torch.cat(feats, dim=-1), wq[num_layers][FEAT_OFF:])
-            out = ((lff * meta[1, :features] + meta[1, features:2 * features]) * RES_SCALE
-                   + xq * meta[2, 0])
-            if b == len(qchain) - 1:
-                return out.to(out_dtype)
-            xq = torch.clamp(torch.round(out / qchain[b + 1][2][2, 0]), -QMAX, QMAX)
+            last = b == len(qchain) - 1
+            out = lff_plain_i8(torch.cat(feats, dim=-1), wq[num_layers][FEAT_OFF:],
+                               meta[1, :features], meta[1, features:2 * features], meta[2, 0],
+                               None if last else qchain[b + 1][2][2, 0],
+                               out_dtype if last else torch.int8)
+            if last:
+                return out
+            xq = out.float()
     raise ValueError("empty int8 RDB chain")
+
+
+def lff_plain_i8(cat: torch.Tensor, wl: torch.Tensor, ldq: torch.Tensor, lbias: torch.Tensor,
+                 s_in: torch.Tensor, s_next, out_dtype=torch.int8) -> torch.Tensor:
+    """Plain version of the int8 fusion on the leading ``ccat`` channels of
+    the integer-valued ``cat`` (``wl`` the int8 wire rows (ccat, C)):
+    ``v = (lff·ldq + lbias)·0.2 + cat[..., :C]·s_in`` with ``lff`` the int32
+    products; int8 ``clip(rint(v / s_next), ±127)`` (true division), or v
+    rounded to ``out_dtype``."""
+    ccat, c = wl.shape
+    xq = cat[..., :ccat].float()
+    with exact_float32():
+        v = (int_products(xq, wl) * ldq + lbias) * RES_SCALE + xq[..., :c] * s_in
+    if out_dtype != torch.int8:
+        return v.to(out_dtype)
+    return torch.clamp(torch.round(v / s_next), -QMAX, QMAX).to(torch.int8)
 
 
 class PackedBlockI8(NamedTuple):
     """One int8 block as the kernels take it: its dense layers and the
-    fusion's int8 weights ``(C, ceil16(C + L·G))``, zero beyond C + L·G."""
+    fusion's int8 weight image (``pack_i8_weights`` of the (C + L·G, C) wire
+    rows at the fusion's N tile ``LFF_N_TILE``)."""
 
     layers: List[PackedLayerI8]
     lw: torch.Tensor
@@ -275,8 +298,7 @@ def packed_block(block, features: int, num_layers: int, growth: int,
                             meta[3, i * growth:(i + 1) * growth].contiguous(),
                             9, features + growth * i, growth)
               for i in range(num_layers)]
-    ccat = features + num_layers * growth
-    lw = F.pad(wq[num_layers][FEAT_OFF:].t(), (0, _ceil_to(ccat, 16) - ccat)).contiguous()
+    lw = pack_i8_weights(wq[num_layers][FEAT_OFF:], 1, features, features, LFF_N_TILE)
     return PackedBlockI8(layers, lw)
 
 
@@ -293,30 +315,41 @@ def packed_rdb_chain(qchain, int32_taps=None) -> List[PackedBlockI8]:
     return packs
 
 
+def lff_image_size(ccat: int, c: int) -> int:
+    """Bytes of the int8 fusion's weight image for ``ccat`` → ``c`` channels."""
+    return _ceil_to(c, LFF_N_TILE) * _ceil_to(ccat, CHUNK_I8)
+
+
 def lff_launch_i8(cat: torch.Tensor, ccat: int, lw: torch.Tensor, ldq: torch.Tensor,
                   lbias: torch.Tensor, s_in: torch.Tensor, s_next: torch.Tensor,
-                  out: torch.Tensor) -> None:
+                  out: torch.Tensor, out_coff: int = 0) -> None:
     """Launch ``nt_rdb_lff_i8``: fuse channels [0, ccat) of the int8 ``cat``
-    into channels [0, C) of ``out`` (int8 requantised at ``s_next``, or the
-    real value in bfloat16/float32). ``lw`` int8 ``(C, ceil16(ccat))``."""
+    into channels [out_coff, out_coff + C) of ``out`` (int8 requantised at
+    ``s_next``, or the real value in bfloat16/float32), which must not share
+    ``cat``'s storage. ``lw`` is the fusion's weight image
+    (``PackedBlockI8.lw``)."""
     b, h, w, ccs = cat.shape
-    c = lw.shape[0]
-    if (tuple(lw.shape) != (c, _ceil_to(ccat, 16)) or ccat > ccs or ccs % 16
+    c = ldq.shape[0]
+    if (tuple(lw.shape) != (lff_image_size(ccat, c),) or not c <= ccat <= ccs or ccs % 16
             or tuple(ldq.shape) != (c,) or tuple(lbias.shape) != (c,)
-            or s_in.numel() < 1 or s_next.numel() < 1
-            or out.shape[:3] != cat.shape[:3] or out.shape[-1] < c):
-        raise ValueError(f"int8 RDB fusion: weights {tuple(lw.shape)}, factors "
+            or s_in.numel() < 1 or s_next.numel() < 1 or out.shape[:3] != cat.shape[:3]
+            or out_coff < 0 or out_coff + c > out.shape[-1]):
+        raise ValueError(f"int8 RDB fusion: weight image {tuple(lw.shape)}, factors "
                          f"{tuple(ldq.shape)}/{tuple(lbias.shape)} or output "
-                         f"{tuple(out.shape)} do not fit {ccat} of {ccs} input channels")
+                         f"{tuple(out.shape)} at {out_coff} do not fit {ccat} of {ccs} input "
+                         "channels")
     tensors = (cat, lw, ldq, lbias, s_in, s_next, out)
     if not (cat.dtype == lw.dtype == torch.int8 and ldq.dtype == lbias.dtype == s_in.dtype
             == s_next.dtype == torch.float32 and all(t.is_contiguous() for t in tensors)
             and cat.data_ptr() % 16 == 0 and lw.data_ptr() % 16 == 0):
         raise ValueError("int8 RDB fusion takes contiguous int8 activations and weights "
                          "(16-byte aligned) and float32 factors")
+    if out.untyped_storage().data_ptr() == cat.untyped_storage().data_ptr():
+        raise ValueError("int8 RDB fusion output shares the concatenation buffer's storage")
     _build.launch("nt_rdb_lff_i8", cat.device, cat.data_ptr(), ccs, ccat, lw.data_ptr(),
                   ldq.data_ptr(), lbias.data_ptr(), s_in.data_ptr(), s_next.data_ptr(),
-                  out.data_ptr(), out.shape[-1], c, b, h, w, _build.dtype_code(out))
+                  out.data_ptr(), out.shape[-1], out_coff, c, b, h, w, _build.dtype_code(out))
+    dispatch.launches["rdb_lff_i8"] += 1
 
 
 def rdb_chain_int8_apply(x: torch.Tensor, qchain, out_dtype=None, int32_taps=None,
@@ -336,8 +369,8 @@ def rdb_chain_int8_apply(x: torch.Tensor, qchain, out_dtype=None, int32_taps=Non
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"int8 RDB output must be float32 or bfloat16, got {out_dtype}")
     ccat = c + num_layers * growth
-    # Two concatenation buffers: block k reads one and writes the next
-    # block's int8 input into channels [0, C) of the other.
+    # Two concatenation buffers (stack_plan): block k reads one and writes
+    # the next block's int8 input into channels [0, C) of the other.
     cats = [torch.empty((b, h, w, _ceil_to(ccat, 16)), dtype=torch.int8, device=x.device)
             for _ in range(min(len(qchain), 2))]
     quantize_into([x], qchain[0][2][2, :1], cats[0], c)
@@ -346,15 +379,16 @@ def rdb_chain_int8_apply(x: torch.Tensor, qchain, out_dtype=None, int32_taps=Non
     packed = packed_rdb_chain(qchain, int32_taps) if packed is None else packed
     if len(packed) != len(qchain):
         raise ValueError(f"{len(packed)} packed blocks for a stack of {len(qchain)}")
-    for k, ((wq, dq, meta), block) in enumerate(zip(qchain, packed)):
-        cat = cats[k % 2]
+    for k, ((src, dst), (wq, dq, meta), block) in enumerate(
+            zip(stack_plan(len(qchain)), qchain, packed)):
+        cat = cats[src]
         for layer in block.layers:
             conv_layer_launch_i8(cat, layer, cat, layer.cin, relu=True, taps_mode=mode)
-        if k == len(qchain) - 1:
+        if dst is None:
             out = torch.empty((b, h, w, c), dtype=out_dtype, device=x.device)
             s_next = meta[2, :1]
         else:
-            out, s_next = cats[(k + 1) % 2], qchain[k + 1][2][2, :1]
+            out, s_next = cats[dst], qchain[k + 1][2][2, :1]
         lff_launch_i8(cat, ccat, block.lw, meta[1, :c], meta[1, c:2 * c], meta[2, :1], s_next,
                       out)
         dispatch.launches["rdb_int8"] += 1

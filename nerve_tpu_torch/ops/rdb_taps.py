@@ -49,7 +49,7 @@ into the accumulator unrounded, each layer stores one token per warp; no
 plain version, as the harness compares nothing for it).
 
 A CUDA tensor runs ``nt_rdb_taps_conv`` (``csrc/rdb_taps.cu``) once per
-dense layer into the slots of a (B, H, W, C + L·G) concatenation buffer,
+dense layer into the slots of a (B, H, W, ceil8(C + L·G)) concatenation buffer,
 then ``nt_rdb_lff`` (``csrc/rdb.cu``); a CPU tensor runs ``rdb_taps_plain``.
 Weights and biases take the activation dtype's values, as the Pallas
 kernels pack them at the parameters' dtype.
@@ -225,15 +225,18 @@ def rdb_taps_apply(x: torch.Tensor, params: Sequence[torch.Tensor],
     num_layers, ctot = _check(x, params)
     b, h, w, c = x.shape
     dt = x.dtype
-    cat = torch.empty((b, h, w, ctot), dtype=dt, device=x.device)
+    # A channel stride of a multiple of 8: the fusion reads the buffer
+    # through TMA (16-byte pixel strides).
+    ccs = -(-ctot // 8) * 8
+    cat = torch.empty((b, h, w, ccs), dtype=dt, device=x.device)
     cat[..., :c] = x
     ctable = (ctypes.c_int * len(table))(*table)
     off = c
     for i in range(num_layers):
         wk = params[2 * i].to(dt).float().contiguous()
         bk = params[2 * i + 1].to(dt).float().contiguous()
-        _build.launch("nt_rdb_taps_conv", x.device, cat.data_ptr(), ctot, off, wk.data_ptr(),
-                      bk.data_ptr(), cat.data_ptr(), ctot, off, wk.shape[-1], b, h, w, ctable,
+        _build.launch("nt_rdb_taps_conv", x.device, cat.data_ptr(), ccs, off, wk.data_ptr(),
+                      bk.data_ptr(), cat.data_ptr(), ccs, off, wk.shape[-1], b, h, w, ctable,
                       flags, _build.dtype_code(x))
         off += wk.shape[-1]
     out = cat[..., :c].contiguous() if mode == "nolff" else lff_launch(

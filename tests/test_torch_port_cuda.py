@@ -19,7 +19,11 @@ scale (one int8 step of a requantised intermediate may flip); and
 bit-exact: the int8 dense layer (``csrc/conv_int8.cu``) in all three tap
 schedules, at ragged H, W and cin and at many tiles per block, the conv
 chains through it, and the input quantisation (``csrc/quantize_i8.cu``).
-The int8 slice's launches per frame are counted. The
+The RDB fusions alone (``csrc/rdb.cu``, ``csrc/rdb_int8.cu``) from a wider
+buffer into an offset slot, at many tiles per block, B = 2 and ragged W:
+bf16 at the RDB's levels, int8 bit-exact in each output type, also on
+values at .5 steps of the next scale; the bf16 stack through its two
+buffers. The int8 slice's launches per frame are counted. The
 RDB under the TPU kernels' rounding contracts (``ops.rdb_taps``) is held at
 the RDB's levels and, in bfloat16, to a mean|Δ| against its contract's plain
 version at most ¼ of that against any other contract's; the planar d2s
@@ -232,6 +236,83 @@ def test_rdb(cuda, dtype):
     _check("rdb", ops.rdb_chain_apply(x, plist), rdb.rdb_chain_plain(x, plist), dtype)
 
 
+# name -> (batch, H, W, C, C + L·G): many tiles per block at a ragged width
+# and B > 1, the card tests' C = 16 (176 is not a multiple of the 32- or
+# 64-channel steps) and the flagship's C = 64.
+LFF_SHAPES = {"c16": (2, 131, 517, 16, 176), "c64": (2, 131, 517, 64, 224)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(LFF_SHAPES))
+def test_rdb_lff(cuda, shape, dtype):
+    """The fusion alone: the leading C + L·G channels of a wider buffer in,
+    an offset slot of a wider output out, against ``lff_plain`` at the RDB's
+    levels; every other output channel untouched."""
+    bsz, h, w, c, ccat = LFF_SHAPES[shape]
+    g = torch.Generator().manual_seed(16)
+    cat = _rand(g, bsz, h, w, ccat + 8).to(cuda, dtype)
+    lw = _rand(g, ccat, c, std=ccat ** -0.5).to(cuda, dtype)
+    lb = _rand(g, c, std=0.1).to(cuda)
+    out = _rand(g, bsz, h, w, c + 24).to(cuda, dtype)
+    before = out.clone()
+    n0 = dispatch.launches["rdb_lff"]
+    rdb.lff_launch(cat, lw, lb, out, 8)
+    assert dispatch.launches["rdb_lff"] == n0 + 1
+    _check("rdb", out[..., 8:8 + c], rdb.lff_plain(cat, lw, lb), dtype)
+    assert torch.equal(out[..., :8], before[..., :8])
+    assert torch.equal(out[..., 8 + c:], before[..., 8 + c:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", list(LFF_SHAPES))
+def test_rdb_lff_i8_bit_exact(cuda, shape, out_dtype):
+    """The int8 fusion alone, bit-exact against ``lff_plain_i8``: the
+    leading C + L·G channels of a wider int8 buffer in, an offset slot of a
+    wider output out. In channels [0, C / 2) the factors and biases are 0
+    and s_in = s_next / 2, so v = x · s_in sits on .5 steps of s_next, where
+    a reciprocal multiply would round some values otherwise."""
+    bsz, h, w, c, ccat = LFF_SHAPES[shape]
+    g = torch.Generator().manual_seed(17)
+    cat = torch.randint(-127, 128, (bsz, h, w, -(-ccat // 16) * 16 + 16), generator=g,
+                        dtype=torch.int8).to(cuda)
+    wl = torch.randint(-127, 128, (ccat, c), generator=g, dtype=torch.int8)
+    ldq, lbias = torch.rand(c, generator=g) * 1e-4, _rand(g, c, std=0.1)
+    ldq[:c // 2], lbias[:c // 2] = 0.0, 0.0
+    s_next = torch.tensor([0.3], device=cuda)
+    s_in = s_next / 2
+    image = conv_chain_int8.pack_i8_weights(wl, 1, c, c, rdb_int8.LFF_N_TILE).to(cuda)
+    ldq, lbias, wl = ldq.to(cuda), lbias.to(cuda), wl.to(cuda)
+    out = torch.zeros((bsz, h, w, c + 32), dtype=out_dtype, device=cuda)
+    n0 = dispatch.launches["rdb_lff_i8"]
+    rdb_int8.lff_launch_i8(cat, ccat, image, ldq, lbias, s_in, s_next, out, 16)
+    assert dispatch.launches["rdb_lff_i8"] == n0 + 1
+    ref = rdb_int8.lff_plain_i8(cat, wl, ldq, lbias, s_in[0], s_next[0], out_dtype)
+    assert ref.dtype == out_dtype and torch.equal(out[..., 16:16 + c], ref)
+    assert not out[..., :16].any() and not out[..., 16 + c:].any()
+    if out_dtype == torch.int8:
+        v = cat[..., :c // 2].float() * s_in[0]
+        recip = torch.clamp(torch.round(v * (1 / s_next[0])), -127, 127).to(torch.int8)
+        assert not torch.equal(ref[..., :c // 2], recip)  # the ties are there
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [12, 64])
+def test_rdb_stack_two_buffers(cuda, dtype, c):
+    """Three blocks through the two-buffer plan (C = 12: buffers of 176
+    channels for 172), each block counted under ``rdb`` and ``rdb_lff``."""
+    g = torch.Generator().manual_seed(18)
+    plist = [[p.to(dtype) for p in _rdb_params(g, c, cuda)] for _ in range(3)]
+    x = _rand(g, 2, 37, 133, c).to(cuda, dtype)
+    n0 = dict(dispatch.launches)
+    got = ops.rdb_chain_apply(x, plist)
+    assert dispatch.launches["rdb"] == n0["rdb"] + 3
+    assert dispatch.launches["rdb_lff"] == n0["rdb_lff"] + 3
+    _check("rdb", got, rdb.rdb_chain_plain(x, plist), dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("site", ["head", "list_1x1", "flow_like"])
@@ -396,8 +477,9 @@ def test_quantize_i8_bit_exact(cuda, dtype):
 @pytest.mark.cuda
 def test_int8_slice_launches(cuda):
     """The flagship's int8 configuration (64 features, 8 RDBs) on a small
-    frame: per frame 10 conv_chain_int8, 8 rdb_int8 and 6 quantize_i8
-    launches (five chain sites and the RDB stack), no bf16 conv or RDB, and
+    frame: per frame 10 conv_chain_int8, 8 rdb_int8 (each with its fusion,
+    8 rdb_lff_i8) and 6 quantize_i8 launches (five chain sites and the RDB
+    stack), no bf16 conv, RDB or fusion, and
     no weight packing once the first step has packed each int8 state. The
     model is built inside inference mode, as serving code may build it."""
     with torch.inference_mode():
@@ -414,7 +496,8 @@ def test_int8_slice_launches(cuda):
     torch.cuda.synchronize()
     n = len(video) - 2
     want = {"conv_chain_int8": 10 * n, "rdb_int8": 8 * n, "quantize_i8": 6 * n,
-            "conv_chain": 0, "rdb": 0, "rdb_int8_int32_taps": 0}
+            "rdb_lff_i8": 8 * n, "conv_chain": 0, "rdb": 0, "rdb_lff": 0,
+            "rdb_int8_int32_taps": 0}
     assert {k: dispatch.launches[k] for k in want} == want
     assert dispatch.packs["int8"] == 0
     assert out.shape == (1, 64, 96 * 3) and bool(torch.isfinite(out).all())
