@@ -11,11 +11,16 @@ Phases, each of which raises on failure and prints its wall time:
    bf16 layer and fusion, ``IGMMA`` and no ``IMMA`` for the int8 layer and
    fusion, each instance printed with its ptxas registers and spills.
 2. Device: the probe of ``diag.probe`` (a matrix product and the probe
-   kernel), then the card's name and power limit (``nvidia-smi``); TF32 off.
+   kernel), then the card's name and power limit (``nvidia-smi``); TF32 off;
+   the host cost of one launch through ``_build.launch`` and the probe's
+   wrapper beside ``a * 2.0`` (``diag.planar.launch_path``: host clock over
+   10,000 launches without a synchronise).
 3. Kernels: each of the eleven CUDA kernels against its plain PyTorch version
    on the card, at a small ragged shape and at the serving shapes of the
    flagship path (1080p → 2160p) and, for the depthwise layer and the planar
-   chain, of the lightweight body at 1080p, with median times from CUDA events, the
+   chain, of the lightweight body at 1080p (the planar chain with its weight
+   pack made beforehand, and once more packing in the call), with median
+   times from CUDA events, the
    least time the card could take for the same work (``bound_ms``) and,
    where one PyTorch call computes the same function, that call's time
    (``library_ms``). The bf16 kernels run in bfloat16 and float32; the int8
@@ -76,7 +81,8 @@ Phases, each of which raises on failure and prints its wall time:
    the plain versions' run. Last, the same body runs through
    ``ops.planar_chain_apply`` (the one-launch planar chain) on each planar
    frame: ``planar_chain`` must launch once per frame and nothing else, and
-   its result must agree with the per-layer body's.
+   its result must agree with the per-layer body's. Both bodies take the
+   model's chain folded once, the planar one its pack made once.
 
 ``--profile DIR`` profiles two steps of each slice (``diag.conv.profile``:
 idle share, kernels by time, the RDB fusions', dense layers' and ATen
@@ -109,6 +115,7 @@ from nerve_tpu_torch import ops
 from nerve_tpu_torch.diag import _common
 from nerve_tpu_torch.diag import d2s as diag_d2s
 from nerve_tpu_torch.diag import probe
+from nerve_tpu_torch.diag.planar import launch_path
 from nerve_tpu_torch.diag import rdb as diag_rdb
 from nerve_tpu_torch.diag.conv import (
     BLOCKS,
@@ -215,9 +222,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, plain version)
 # bf16 kernels: limits (float32, bfloat16) relative to max|plain|.
 BF16_LIMITS = {"d2s_packed": (0.0, 0.0), "correlation": (1e-5, 1e-2),
                "conv_chain": (1e-4, 2.4e-2), "conv_chain_dw3": (1e-4, 2.4e-2),
-               "planar_chain": (1e-4, 2.4e-2), "rdb": (1e-4, 1.56e-2),
+               "planar_chain": (1e-4, 2.4e-2), "planar_chain pack in the call": (1e-4, 2.4e-2),
+               "rdb": (1e-4, 1.56e-2),
                "rdb_lff": (1e-4, 1.56e-2)}
-CHAIN_KERNELS = ("conv_chain", "conv_chain_dw3", "planar_chain")
+CHAIN_KERNELS = ("conv_chain", "conv_chain_dw3", "planar_chain", "planar_chain pack in the call")
 # The ops the model calls, and the plain version each is replaced by in
 # the reference runs.
 OPS_OF = {"d2s_packed": "depth_to_space_packed", "correlation": "correlation_volume",
@@ -244,6 +252,9 @@ def phase(name: str):
     t0 = time.perf_counter()
     yield
     print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+PROBE_REPS = 25
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -351,6 +362,7 @@ def bf16_kernel_cases(dev, dt, serving: bool):
     lw_label = "lightweight body 1080p" if serving else label
     dw_libs = [cudnn_chain([e], dt) for e in dws]
     planar_lib = cudnn_chain(body, dt)
+    planar_pack = planar_chain.packed_planar_chain(body, dt, dev)
 
     def chains(fn):
         return lambda: [fn(xx, p) for xx, p in sites]
@@ -370,6 +382,8 @@ def bf16_kernel_cases(dev, dt, serving: bool):
     corr_ops = 2 * 81 * f1.shape[-1] * pixels(f1)
     out_corr = math.prod(f1.shape[:3]) * 81 * f1.element_size()
     site_bytes = sum(chain_bytes(xx, p, dt) for xx, p in sites)
+    planar_work = bound(chain_ops(body, xp[0, 0].numel() * xp.shape[0]),
+                        nbytes(xp) * 5 + nbytes(*(t for w, b, _ in body for t in (w, b))), "bf16")
     return {
         "d2s_packed": (label, lambda: ops.depth_to_space_packed(x, 2),
                        lambda: d2s.depth_to_space_packed_plain(x, 2),
@@ -387,12 +401,12 @@ def bf16_kernel_cases(dev, dt, serving: bool):
                            bound(sum(chain_ops([e], pixels(a)) for a, e in zip(dw_in, dws)),
                                  sum(2 * nbytes(a) + nbytes(*e[:2]) for a, e in zip(dw_in, dws)),
                                  "bf16")),
-        "planar_chain": (lw_label, lambda: ops.planar_chain_apply(xp, body),
+        "planar_chain": (lw_label, lambda: ops.planar_chain_apply(xp, body, packed=planar_pack),
                          lambda: planar_chain.planar_chain_plain(xp, body),
-                         lambda: planar_lib(xp.permute(0, 2, 3, 1)),
-                         bound(chain_ops(body, xp[0, 0].numel() * xp.shape[0]),
-                               nbytes(xp) * 5 + nbytes(*(t for w, b, _ in body for t in (w, b))),
-                               "bf16")),
+                         lambda: planar_lib(xp.permute(0, 2, 3, 1)), planar_work),
+        "planar_chain pack in the call": (lw_label, lambda: ops.planar_chain_apply(xp, body),
+                                          lambda: planar_chain.planar_chain_plain(xp, body),
+                                          None, planar_work),
         "rdb": (label, lambda: ops.rdb_chain_apply(xr, plist),
                 lambda: rdb.rdb_chain_plain(xr, plist), None,
                 bound(rdb_ops(plist, pixels(xr)), 2 * nbytes(xr) + nbytes(*sum(plist, [])),
@@ -534,8 +548,9 @@ def _as_list(y):
     return y if isinstance(y, list) else [y]
 
 
-def compare(name, label, dt, kern, plain, limit, rel_scale=None):
-    """Kernel vs plain on the card: (max|err|, elements that differ, ms, plain ms)."""
+def compare(name, label, dt, kern, plain, limit, rel_scale=None, reps=5):
+    """Kernel vs plain on the card: (max|err|, elements that differ, ms, plain ms),
+    each time the median of ``reps`` calls."""
     got, ref = _as_list(kern()), _as_list(plain())
     torch.cuda.synchronize()
     err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
@@ -546,7 +561,7 @@ def compare(name, label, dt, kern, plain, limit, rel_scale=None):
     ok = finite and all(a.shape == b.shape and a.dtype == b.dtype for a, b in zip(got, ref)) and (
         err == 0.0 if limit == 0.0 else err <= limit)
     del got, ref
-    ms, pms = median_ms(kern), median_ms(plain)
+    ms, pms = median_ms(kern, reps), median_ms(plain, reps)
     print(f"kernel {name:24s} {label:38s} {str(dt):15s} max|err| {err:.3e} (limit {limit:.3e}) "
           f"differ {ndiff} kernel {ms:.3f} ms plain {pms:.3f} ms {'ok' if ok else 'FAIL'}",
           flush=True)
@@ -649,6 +664,11 @@ def diag_kernel_cases(dev, dt, serving: bool):
         cases["probe"] = ("(8, 128)", lambda: probe.probe_scale2(a),
                           lambda: probe.probe_scale2_plain(a), 0.0, False, lambda: a * 2.0,
                           bound(0, 2 * nbytes(a), "bf16"), None)
+        # 4099 values at an odd offset: the scalar path.
+        v = torch.rand(4100, generator=g).to(dev)[1:]
+        cases["probe odd view"] = ("(4099,) at offset 1", lambda: probe.probe_scale2(v),
+                                   lambda: probe.probe_scale2_plain(v), 0.0, False, None,
+                                   None, None)
     return cases
 
 
@@ -660,8 +680,10 @@ def check_diag_kernels(dev) -> dict:
         for dt in (torch.bfloat16,) if serving else (torch.float32, torch.bfloat16):
             for name, (label, kern, plain, lim, rel, lib, work, margin) in diag_kernel_cases(
                     dev, dt, serving).items():
+                # The probe's time is host work: more calls for a steadier median.
+                reps = PROBE_REPS if name == "probe" else 5
                 err, _n, ms, pms = compare(name, label, dt, kern, plain, lim,
-                                           0.0 if rel else None)
+                                           0.0 if rel else None, reps)
                 if margin is not None:
                     mine, least_other = margin()
                     ok = mine <= 0.25 * least_other
@@ -675,7 +697,7 @@ def check_diag_kernels(dev) -> dict:
                 if name in KERNELS and (serving or name == "probe"):
                     summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
                                      "bound_ms": work[0], "bound_by": work[1],
-                                     "library_ms": median_ms(lib) if lib else None}
+                                     "library_ms": median_ms(lib, reps) if lib else None}
     # matonly computes no layer, so it has no plain version: it must launch.
     g = torch.Generator().manual_seed(10)
     block = _common.rdb_params(g, 16, dev, torch.bfloat16)
@@ -813,17 +835,22 @@ def check_untrained_lightweight(dev, frame) -> float:
 def run_body(model, video, planar: bool):
     """The model's BN-folded body alone on each frame: per layer through
     ``ops.conv_chain_apply`` (NHWC), or in one launch through
-    ``ops.planar_chain_apply`` (planar); (residuals NHWC, ms per timed frame)."""
+    ``ops.planar_chain_apply`` (planar, its weight pack made once); the
+    chain is folded once, before the frames. (residuals NHWC, ms per timed
+    frame)."""
     outs, times = [], []
     with torch.inference_mode():
+        chain = model.chain()
+        pack = planar_chain.packed_planar_chain(chain, model.dtype, video[0].device)
         for frame in video:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             x = frame.to(model.dtype)
             if planar:
-                y = ops.planar_chain_apply(x.permute(0, 3, 1, 2), model.chain()).permute(0, 2, 3, 1)
+                y = ops.planar_chain_apply(x.permute(0, 3, 1, 2), chain, packed=pack)
+                y = y.permute(0, 2, 3, 1)
             else:
-                y = ops.conv_chain_apply(x, model.chain())
+                y = ops.conv_chain_apply(x, chain)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             outs.append(y)
@@ -935,6 +962,7 @@ def main() -> int:
         print(card, flush=True)
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"device {torch.cuda.get_device_name(0)}", flush=True)
+        launch_path(dev)
     with phase("kernels"):
         summary = check_kernels(dev)
         print(json.dumps({"conv": measure(dev, reps=5, small=False)}), flush=True)

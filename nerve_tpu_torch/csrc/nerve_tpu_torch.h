@@ -56,11 +56,15 @@ int nt_dwconv3(const void* x, const float* w, const float* bias, void* out,
 // A whole chain of SAME 3x3 / 1x1 / depthwise 3x3 layers on planar
 // x (B, C0, H, W) -> out (B, Cout, H, W), every intermediate in shared
 // memory. `layers` is a host array of 6 ints per layer (kind 0 = 3x3,
-// 1 = 1x1, 2 = depthwise; cin, cout <= 64; relu; byte offsets of the
-// layer's weights and bias in `wpack`, multiples of 16); see
-// ops/planar_chain.py `pack_planar_chain` for the weight layouts. nl <= 16.
+// 1 = 1x1, 2 = depthwise, 3 = a first 3x3 layer of at most 3 input
+// channels with its taps folded into one product (NT_BF16 only); cin,
+// cout <= 64; relu; byte offsets of the layer's weights and bias in
+// `wpack`, multiples of 16); see ops/planar_chain.py `pack_planar_chain`
+// for the weight layouts. nl <= 16. Rows of x and out are `ws` elements
+// apart (ws >= w_; NT_BF16: a multiple of 8, x and out 16-byte aligned;
+// NT_F32: ws = w_).
 int nt_planar_chain(const void* x, void* out, const void* wpack,
-                    const int* layers, int nl, int b, int h, int w_,
+                    const int* layers, int nl, int b, int h, int w_, int ws,
                     int dtype, void* stream);
 
 // One SAME 3x3 dense layer under a grouped-tap rounding contract. Reads
@@ -224,6 +228,34 @@ __device__ __forceinline__ void nt_tma_load_4d(void* dst, const void* map, uint6
       "l"(reinterpret_cast<uint64_t>(map)), "r"(nt_smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+// TMA store: the box at shared-memory `src` into a 4-D tensor map at
+// coordinates (c0 innermost .. c3); what falls outside the tensor is not
+// written. Commit with nt_bulk_commit; the writes that fill `src` must be
+// made visible to the copy first (nt_fence_proxy_async, then a barrier).
+__device__ __forceinline__ void nt_tma_store_4d(const void* map, const void* src, int c0, int c1,
+                                                int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(nt_smem_addr(src)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void nt_fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void nt_bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N committed bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void nt_bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Wait until at most N committed bulk groups are still incomplete.
+template <int N>
+__device__ __forceinline__ void nt_bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 // Bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned).
 __device__ __forceinline__ void nt_bulk_load(void* dst, const void* src, unsigned bytes,

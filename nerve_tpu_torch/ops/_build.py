@@ -8,6 +8,12 @@ named by a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one loads at once. Nothing builds at import: the first kernel
 launch builds. A missing ``nvcc`` or a failed build raises with the
 compiler's message; there is no fallback.
+
+``launch`` is every kernel's way onto the card, so its host cost is paid
+per launch: each entry point is bound once, with its argument types, when
+the library loads; a loaded library is read without a lock; the stream is
+the raw handle of the device's current stream (no ``Stream`` object); and
+the current device is switched only when the tensors lie on another one.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ SIGNATURES = {
     "nt_conv2d": (_I, (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P)),
     "nt_dwconv3": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
-    "nt_planar_chain": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "nt_planar_chain": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "nt_rdb_lff": (_I, (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P)),
     "nt_conv2d_i8": (_I, (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P)),
@@ -53,6 +59,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_entry: dict = {}  # name -> the bound C function, filled once when the library loads
+_raw_stream = _current_device = None  # torch._C's raw-stream and current-device queries
 
 
 def _nvcc() -> str:
@@ -108,14 +116,23 @@ def build() -> Path:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
-    global _lib
+    global _lib, _raw_stream, _current_device
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
+            bound = {}
             for name, (restype, argtypes) in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.restype = restype
                 fn.argtypes = argtypes
+                bound[name] = fn
+            # launch() reads _entry without the lock: publish the entry
+            # points only once what they need is set.
+            _raw_stream = torch._C._cuda_getCurrentRawStream
+            _current_device = torch._C._cuda_getDevice
+            _entry.update(bound)
             _lib = lib
     return _lib
 
@@ -132,10 +149,17 @@ def launch(name: str, device: torch.device, *args) -> None:
 
     ``args`` are the entry point's arguments without the trailing stream.
     """
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
+    fn = _entry.get(name)
+    if fn is None:
+        library()
+        fn = _entry[name]
+    index = device.index
+    current = _current_device()
+    if index is None or index == current:
+        err = fn(*args, _raw_stream(current))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _raw_stream(index))
     if err != 0:
-        msg = lib.nt_error_string(err).decode()
+        msg = _entry["nt_error_string"](err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -30,16 +30,21 @@ packs = {"int8": 0}
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raise otherwise."""
-    dev = tensors[0].device
-    for t in tensors[1:]:
-        if t.device != dev:
-            raise ValueError(f"tensors on different devices: {dev} and {t.device}")
-    if dev.type == "cuda":
+    """True for CUDA tensors, False for CPU tensors; raise otherwise.
+
+    Every kernel launch passes here, so a single tensor takes the tensor's
+    own flags (no ``torch.device`` object is made)."""
+    t0 = tensors[0]
+    if len(tensors) > 1:
+        dev = t0.device
+        for t in tensors[1:]:
+            if t.device != dev:
+                raise ValueError(f"tensors on different devices: {dev} and {t.device}")
+    if t0.is_cuda:
         return True
-    if dev.type == "cpu":
+    if t0.is_cpu:
         return False
-    raise ValueError(f"no kernel and no plain version for device {dev}")
+    raise ValueError(f"no kernel and no plain version for device {t0.device}")
 
 
 def reset_launches() -> None:

@@ -210,11 +210,7 @@ def test_planar_chain(cuda, dtype, chain):
     launch each, on a frame that is not a multiple of the tile."""
     g = torch.Generator().manual_seed(7)
     if chain == "lightweight":
-        params = _conv_params(g, [3, 32], [3], cuda)
-        for _ in range(4):
-            params += [_dw_params(g, 32, "none", cuda), *_conv_params(g, [32, 32], [1], cuda)]
-            params[-1] = (*params[-1][:2], "relu")
-        params += _conv_params(g, [32, 12], [3], cuda)
+        params = _lightweight_body(g, cuda)
         x = torch.rand((2, 3, 21, 45), generator=g)
     else:
         params = _conv_params(g, [5, 64, 20], [3, 1], cuda) + [_dw_params(g, 20, "none", cuda)]
@@ -225,6 +221,93 @@ def test_planar_chain(cuda, dtype, chain):
     assert dispatch.launches["planar_chain"] == n0["planar_chain"] + 1
     assert dispatch.launches["conv_chain"] == n0["conv_chain"]
     _check("conv_chain", got, planar_chain.planar_chain_plain(x, params), dtype)
+
+
+def _lightweight_body(g, dev):
+    params = _conv_params(g, [3, 32], [3], dev)
+    for _ in range(4):
+        params += [_dw_params(g, 32, "none", dev), *_conv_params(g, [32, 32], [1], dev)]
+        params[-1] = (*params[-1][:2], "relu")
+    return params + _conv_params(g, [32, 12], [3], dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 270, 480), (2, 3, 37, 101)])
+def test_planar_chain_many_tiles(cuda, shape):
+    """The lightweight body in bfloat16 over more output tiles than the
+    card has persistent blocks (and a ragged frame): one launch per call;
+    a pack made once and reused gives, to the bit, what a pack made in the
+    call gives."""
+    g = torch.Generator().manual_seed(13)
+    params = _lightweight_body(g, cuda)
+    x = torch.rand(shape, generator=g).to(cuda, torch.bfloat16)
+    pk = planar_chain.packed_planar_chain(params, torch.bfloat16, cuda)
+    n0 = dispatch.launches["planar_chain"]
+    got = ops.planar_chain_apply(x, params, packed=pk)
+    assert dispatch.launches["planar_chain"] == n0 + 1
+    assert torch.equal(got, ops.planar_chain_apply(x, params))
+    assert torch.equal(got, ops.planar_chain_apply(x, params, packed=pk))
+    _check("conv_chain", got, planar_chain.planar_chain_plain(x, params), torch.bfloat16)
+
+
+# name -> (layer widths, kinds: 3 / 1 dense, "dw" depthwise), each with a
+# ragged frame: the folded head alone; a 1x1 first layer (the input box
+# transposed) and a depthwise layer alone; 48- and 64-channel (depthwise,
+# 1x1) pairs and a 1x1 last layer; two 64 -> 64 3x3 layers, whose bfloat16
+# pack does not fit beside the persistent kernel's buffers (the per-tile
+# kernel runs it).
+PLANAR_GEOMETRIES = {
+    "head_only": ([3, 12], [3]),
+    "pointwise_first": ([6, 16, 16, 4], [1, "dw", 3]),
+    "wide_pairs": ([3, 64, 64, 48, 48, 16, 8], [3, "dw", 1, "dw", 1, 1]),
+    "wide_3x3_pair": ([64, 64, 64], [3, 3]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry", list(PLANAR_GEOMETRIES))
+def test_planar_chain_geometry(cuda, dtype, geometry):
+    _check_planar_geometry(cuda, dtype, *PLANAR_GEOMETRIES[geometry])
+
+
+@pytest.mark.cuda
+def test_planar_chain_wide_3x3_stack_bf16(cuda):
+    """A folded 3 -> 64 head and three 64 -> 64 3x3 layers in bfloat16:
+    ~255 KB of weights, more than fits beside the persistent kernel's
+    buffers, so the per-tile kernel runs it (its folded head as FMAs).
+    (In float32 one such layer's weights, 166 KB, leave no tile room.)"""
+    _check_planar_geometry(cuda, torch.bfloat16, [3, 64, 64, 64, 64], [3, 3, 3, 3])
+
+
+def _check_planar_geometry(cuda, dtype, widths, kinds):
+    g = torch.Generator().manual_seed(14)
+    params = []
+    for i, k in enumerate(kinds):
+        act = "relu" if i % 2 == 0 else "none"
+        if k == "dw":
+            params.append(_dw_params(g, widths[i], act, cuda))
+        else:
+            params += [(*e[:2], act) for e in _conv_params(g, widths[i:i + 2], [k], cuda)]
+    x = _rand(g, 2, widths[0], 23, 77).to(cuda, dtype)
+    n0 = dispatch.launches["planar_chain"]
+    got = ops.planar_chain_apply(x, params)
+    assert dispatch.launches["planar_chain"] == n0 + 1
+    _check("conv_chain", got, planar_chain.planar_chain_plain(x, params), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_planar_chain_too_large_raises(cuda, dtype):
+    """Sixteen 64-wide 3x3 layers: no tile of either kernel fits, so the
+    call raises (and launches nothing)."""
+    g = torch.Generator().manual_seed(15)
+    params = _conv_params(g, [64] * 17, [3] * 16, cuda)
+    x = _rand(g, 1, 64, 8, 16).to(cuda, dtype)
+    n0 = dispatch.launches["planar_chain"]
+    with pytest.raises(RuntimeError, match="nt_planar_chain"):
+        ops.planar_chain_apply(x, params)
+    assert dispatch.launches["planar_chain"] == n0
 
 
 @pytest.mark.cuda
@@ -567,3 +650,16 @@ def test_probe(cuda, capsys):
     assert capsys.readouterr().out.strip() == "probe ok"
     a = _rand(torch.Generator().manual_seed(12), 8, 128).to(cuda)
     assert torch.equal(probe.probe_scale2(a), probe.probe_scale2_plain(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 1024, 4099])
+def test_probe_sizes_and_offsets(cuda, n):
+    """16-byte accesses with a scalar tail, and on a view at an odd offset
+    (the scalar path): each equal to a * 2."""
+    base = _rand(torch.Generator().manual_seed(15), n + 1).to(cuda)
+    for a in (base[:n], base[1:]):
+        n0 = dispatch.launches["probe"]
+        got = probe.probe_scale2(a)
+        assert dispatch.launches["probe"] == n0 + 1
+        assert torch.equal(got, a * 2)

@@ -133,13 +133,21 @@ class TestPlanarChain:
         params = _torch_params(_body(rng, c=20))
         wpack, table = ops.planar_chain.pack_planar_chain(params, torch.bfloat16, "cpu")
         table = table.reshape(-1, 6).tolist()
-        assert [row[:4] for row in table] == [[0, 3, 20, 1], [2, 20, 20, 0], [1, 20, 20, 1],
+        # The bfloat16 head (3 input channels) has its taps folded into K (kind 3).
+        assert [row[:4] for row in table] == [[3, 3, 20, 1], [2, 20, 20, 0], [1, 20, 20, 1],
                                               [2, 20, 20, 0], [1, 20, 20, 1], [0, 20, 12, 0]]
         assert all(off % 16 == 0 for row in table for off in row[4:])
-        # The head: bfloat16 [tap][32][16 + 8]; tap 4, out channel 5, in channel 2.
-        head = wpack[:9 * 32 * 24 * 2].view(torch.bfloat16).reshape(9, 32, 24)
-        assert head[4, 5, 2] == params[0][0][1, 1, 2, 5].bfloat16()
-        assert not head[:, 20:].any() and not head[:, :, 3:].any()
+        # The head: bfloat16 [32][32 + 8], column c * 9 + tap; tap 4, in channel 2, out 5.
+        head = wpack[:32 * 40 * 2].view(torch.bfloat16).reshape(32, 40)
+        assert head[5, 2 * 9 + 4] == params[0][0][1, 1, 2, 5].bfloat16()
+        assert not head[20:].any() and not head[:, 27:].any()
+        assert torch.equal(head[:20, :27], params[0][0].bfloat16().permute(3, 2, 0, 1).reshape(20, 27))
+        # float32 keeps the per-tap layout [tap][32][16 + 8].
+        wpack32, table32 = ops.planar_chain.pack_planar_chain(params, torch.float32, "cpu")
+        assert table32.reshape(-1, 6)[0, 0] == 0
+        head32 = wpack32[:9 * 32 * 24 * 4].view(torch.float32).reshape(9, 32, 24)
+        assert head32[4, 5, 2] == params[0][0][1, 1, 2, 5]
+        assert not head32[:, 20:].any() and not head32[:, :, 3:].any()
         dw = wpack[table[1][4]:table[1][5]].view(torch.float32).reshape(9, 32)
         assert torch.equal(dw[:, :20], params[1][0].bfloat16().float().reshape(9, 20))
         assert not dw[:, 20:].any()
