@@ -34,7 +34,14 @@ Phases, each of which raises on failure and prints its wall time:
    shape from a wider buffer into an offset slot), the int8 one bit-exact
    on values at .5 steps of the next block's scale; their library times
    are ``torch.matmul`` and ``torch._int_mm`` of the same products. The
-   int8 kernels' library
+   correlation also runs the exact-sum input at the serving shape
+   (``diag.correlation.exact_sum_inputs``: bit-exact, which a kernel that
+   does not round each product to bfloat16 fails). Its ``bound_ms`` is by
+   bytes: its multiplies and adds at the card's bfloat16 peak take less.
+   Beside it are printed two least times of the kernel's own design, which
+   does all its work on the CUDA cores: a multiply and an add per product at
+   the float32 peak, and the issue rate of its 2.5 instructions a product.
+   The int8 kernels' library
    time is ``torch._int_mm``'s for the same int32 products (products only,
    ``diag.conv.int_mm_yardstick``). Then the bf16 dense
    convolution per conv-chain site and per dense layer of one RDB block,
@@ -113,6 +120,7 @@ import torch.nn.functional as F
 
 from nerve_tpu_torch import ops
 from nerve_tpu_torch.diag import _common
+from nerve_tpu_torch.diag import correlation as diag_corr
 from nerve_tpu_torch.diag import d2s as diag_d2s
 from nerve_tpu_torch.diag import probe
 from nerve_tpu_torch.diag.planar import launch_path
@@ -595,6 +603,7 @@ def check_kernels(dev) -> dict:
                                      "bound_ms": work[0], "bound_by": work[1],
                                      "library_ms": median_ms(lib) if lib else None}
                     torch.cuda.empty_cache()
+    check_correlation_exact(dev, summary["correlation"]["ms"])
     for name, s in summary.items():
         lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.3f} ms"
         if name.startswith(("conv_chain_int8", "rdb_int8")) and s["library_ms"] is not None:
@@ -603,6 +612,28 @@ def check_kernels(dev) -> dict:
               f"{s['ms']:.3f} ms: {s['bound_ms'] / s['ms']:.3f} of the bound; library {lib}",
               flush=True)
     return summary
+
+
+def check_correlation_exact(dev, ms: float) -> None:
+    """The correlation on the exact-sum input at the serving shape: bit-exact
+    against its plain version, each value inside the frame 2⁻¹⁸ / C; then the
+    serving-shape time ``ms`` beside the byte bound and the two bounds of the
+    kernel's CUDA-core design."""
+    f1, f2, inside = diag_corr.exact_sum_inputs(2, H // 2, W // 2, FEATURES, device=dev)
+    got = ops.correlation_volume(f1, f2, 4)
+    ref = correlation.correlation_plain(f1, f2, 4)
+    ok = torch.equal(got, ref) and bool(got[:, 4:-4, 4:-4].float().eq(inside).all())
+    print(f"kernel {'correlation exact sum':24s} {'serving 2x540x960x64':38s} "
+          f"{'torch.bfloat16':15s} {'bit-exact' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the correlation kernel differs from its plain version on the "
+                             "exact-sum input: a product not rounded to bfloat16")
+    del f1, f2, got, ref
+    b = diag_corr.bounds_ms((2, H // 2, W // 2, FEATURES), 4, 2)
+    print(f"bound correlation bytes {b['bytes']:.4f} ms; this design's: float32 peak "
+          f"{b['float32_peak']:.4f} ms, issue (2.5 instructions a product) {b['issue']:.4f} ms; "
+          f"kernel {ms:.4f} ms: {b['issue'] / ms:.3f} of the issue bound", flush=True)
+    torch.cuda.empty_cache()
 
 
 def diag_kernel_cases(dev, dt, serving: bool):

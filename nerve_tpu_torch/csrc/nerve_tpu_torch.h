@@ -29,9 +29,18 @@ int nt_d2s_packed(const void* x, void* out, int b, int h, int w, int c, int s,
 int nt_d2s_packed_planar(const void* x, void* out, int b, int h, int w, int c,
                          int s, int dtype, void* stream);
 
-// Cost volume (B, H, W, C) x2 -> (B, H, W, (2d+1)^2), 1 <= d <= 4.
+// Cost volume (B, H, W, C) x2 -> (B, H, W, (2d+1)^2), 1 <= d <= 4. f1 and
+// f2 hold cs >= c channels a pixel (cs * element size a multiple of 16,
+// both 16-byte aligned; channels [c, cs) zero); the sums are divided by c.
 int nt_correlation(const void* f1, const void* f2, void* out, int b, int h,
-                   int w, int c, int d, int dtype, void* stream);
+                   int w, int c, int cs, int d, int dtype, void* stream);
+
+// The launch nt_correlation makes for these arguments, without launching:
+// rec[0..6] = grid, threads, dynamic shared bytes, static shared bytes,
+// registers a thread, local (spill) bytes a thread, tiles. stream unused.
+int nt_correlation_launch(const void* f1, const void* f2, int b, int h, int w,
+                          int c, int cs, int d, int dtype, int* rec,
+                          void* stream);
 
 // One SAME 3x3 or 1x1 conv layer. Reads channels [0, cin) of the input,
 // writes channels [out_coff, out_coff + cout) of out (channel stride

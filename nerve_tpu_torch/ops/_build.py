@@ -42,7 +42,8 @@ SIGNATURES = {
     "nt_d2s_packed_planar": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "nt_rdb_taps_conv": (_I, (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P)),
     "nt_probe_scale2": (_I, (_P, _P, _I, _P)),
-    "nt_correlation": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_correlation": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_correlation_launch": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P)),
     "nt_conv2d": (_I, (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P)),
     "nt_dwconv3": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),

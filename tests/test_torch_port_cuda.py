@@ -6,7 +6,11 @@ repository's conftest::
 
     python -m pytest tests/test_torch_port_cuda.py --noconftest -q
 
-Shapes are small and ragged (not multiples of the kernels' tiles). Limits,
+Shapes are small and ragged (not multiples of the kernels' tiles). The
+correlation runs d = 1..4 over many tiles, partial tiles on every edge,
+padded channel counts, a non-contiguous and a misaligned input, one launch
+a call, and is bit-exact on the exact-sum input, which a kernel that drops
+the per-product bfloat16 rounding fails. Limits,
 relative to max|plain|: d2s bit-exact; float32 1e-4 (correlation 1e-5),
 TF32 off; bfloat16 at the JAX package's kernel-gate levels (correlation
 1e-2, conv chain 2.4e-2, also for its depthwise layers and the planar
@@ -37,6 +41,7 @@ import torch
 
 from nerve_tpu_torch import ops
 from nerve_tpu_torch.diag import conv as diag_conv
+from nerve_tpu_torch.diag import correlation as diag_corr
 from nerve_tpu_torch.diag import probe
 from nerve_tpu_torch.models import quantize_sr, streaming_prime, streaming_step
 from nerve_tpu_torch.ops import (
@@ -111,14 +116,43 @@ def test_d2s_packed_bit_exact(cuda, dtype):
         assert torch.equal(got, d2s.depth_to_space_packed_plain(x, s))
 
 
+# Many tiles per block and partial 8 x 32 tiles on all four edges; C whose
+# pixel stride is not a multiple of 16 bytes (3, 20: the padded route), two
+# 128-byte channel chunks (128 in bfloat16; 64 and 128 in float32).
+CORR_SHAPES = [(2, 37, 131, 64), (3, 9, 33, 16), (1, 5, 7, 64), (2, 19, 45, 3),
+               (1, 11, 40, 20), (1, 13, 35, 128)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
 def test_correlation(cuda, dtype, d):
     g = torch.Generator().manual_seed(1)
-    f1, f2 = (_rand(g, 2, 11, 35, 16).to(cuda, dtype) for _ in range(2))
-    _check("correlation", ops.correlation_volume(f1, f2, d),
-           correlation.correlation_plain(f1, f2, d), dtype)
+    cases = [tuple(_rand(g, *shape).to(cuda, dtype) for _ in range(2)) for shape in CORR_SHAPES]
+    # Non-contiguous (a channel slice of a wider tensor), and contiguous at
+    # an offset that is not 16-byte aligned.
+    wide = _rand(g, 2, 17, 50, 80).to(cuda, dtype)
+    cases.append((wide[..., 8:72], wide[..., 16:]))
+    flat = _rand(g, 1 + 2 * 9 * 33 * 64).to(cuda, dtype)
+    cases.append((flat[1:].view(2, 9, 33, 64), flat[:-1].view(2, 9, 33, 64)))
+    for f1, f2 in cases:
+        n0 = dispatch.launches["correlation"]
+        got = ops.correlation_volume(f1, f2, d)
+        assert dispatch.launches["correlation"] == n0 + 1
+        _check("correlation", got, correlation.correlation_plain(f1, f2, d), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_correlation_exact_sum_bit_exact(cuda, d):
+    """Constant fields whose bfloat16 sums are exact in any order
+    (``diag.correlation.exact_sum_inputs``): the kernel equals the plain
+    version bit for bit; a kernel that does not round each product to
+    bfloat16 gives 496 · 2⁻²⁴ inside the frame instead of 2⁻²⁴."""
+    f1, f2, inside = diag_corr.exact_sum_inputs(2, 19, 45, device=cuda)
+    got = ops.correlation_volume(f1, f2, d)
+    assert torch.equal(got, correlation.correlation_plain(f1, f2, d))
+    assert bool(got[:, d:-d, d:-d].float().eq(inside).all())
 
 
 # name -> (input part widths, layer widths, kernel sizes): every output tile

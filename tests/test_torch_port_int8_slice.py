@@ -20,6 +20,7 @@ measured 63.1 dB PSNR.
 """
 
 import copy
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -28,8 +29,11 @@ import pytest
 import torch
 
 from nerve_tpu.models import streaming as jstream
+from nerve_tpu.models.layers import QuantizableConv as JaxQuantizableConv
 from nerve_tpu.models.quantize import quantize_sr_variables
+from nerve_tpu.models.super_resolution import RDBStack as JaxRDBStack
 from nerve_tpu.models.super_resolution import SuperResolutionNet as JaxSR
+from nerve_tpu.ops import rdb_int8 as jrdb_int8
 from nerve_tpu_torch.models import (
     SuperResolutionNet,
     calibrate_sr_scales,
@@ -220,3 +224,37 @@ def test_entry_points_default_to_the_card(setup):
         sr_from_flax(setup["qvars"], **QCFG)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         quantize_sr(setup["tmodel"], torch.from_numpy(setup["calib"]))
+
+
+def test_train_mode_of_the_int8_sites(setup):
+    """Training mode at the int8 sites (ROADMAP Queue 3, item 3). The JAX
+    package splits under ``train=True``: its int8 chains run in float (each
+    chain site passes "off" when training), while its int8 RDB stack stays
+    int8, since ``RDBStack.__call__`` takes no ``train`` and
+    ``SuperResolutionNet`` passes it none. The port raises at both: int8
+    serving is inference only, and training is a later slice of the port."""
+    s = setup
+    x = np.random.default_rng(5).random((1, 8, 12, 16)).astype(np.float32)
+    # JAX: the RDB stack has no train to turn int8 off; it gives the int8 result.
+    assert "train" not in inspect.signature(JaxRDBStack.__call__).parameters
+    stack = {"params": s["qvars"]["params"]["rdbs"], "quant": s["qvars"]["quant"]["rdbs"]}
+    got = jax.jit(JaxRDBStack(16, 2, quantized=True).apply)(stack, x)
+    int8 = jrdb_int8.rdb_chain_int8_apply(jnp.asarray(x), stack["quant"]["qchain"],
+                                          out_dtype=jnp.float32)
+    exact = jax.jit(JaxRDBStack(16, 2).apply)({"params": stack["params"]}, x)
+    # Jitted and eager float32 epilogues differ by an ulp; int8 moves by ~1e-2.
+    np.testing.assert_allclose(np.asarray(got), np.asarray(int8), rtol=0, atol=1e-6)
+    assert np.abs(np.asarray(got) - np.asarray(exact)).max() > 1e-3
+    # JAX: a chain site in training runs its float layer, in eval its int8 state.
+    gff = {"params": s["qvars"]["params"]["gff"], "quant": s["qvars"]["quant"]["gff"]}
+    conv = JaxQuantizableConv(16, 16, act="relu", chain_quant="serve")
+    trained = np.asarray(conv.apply(gff, x, train=True))
+    np.testing.assert_allclose(trained, np.asarray(JaxQuantizableConv(16, 16, act="relu").apply(
+        {"params": gff["params"]}, x)), rtol=0, atol=1e-6)
+    assert np.abs(trained - np.asarray(conv.apply(gff, x))).max() > 1e-3
+    # The port: both int8 sites raise in training mode.
+    model = copy.deepcopy(s["tmodel"]).train()
+    with pytest.raises(RuntimeError, match="int8 RDB stack is inference only"):
+        model.rdbs(torch.from_numpy(x))
+    with pytest.raises(RuntimeError, match="int8 chains are inference only"):
+        model.gff(torch.from_numpy(x))
