@@ -46,7 +46,8 @@ Phases, each of which raises on failure and prints its wall time:
    ``diag.conv.int_mm_yardstick``). Then the bf16 dense
    convolution per conv-chain site and per dense layer of one RDB block,
    each beside cuDNN and its own bound (``diag.conv``, one ``{"conv"}``
-   line).
+   line), and the launch records of the depthwise layer and the d2s kernel
+   at their serving shapes.
 4. bf16 slice: ``SuperResolutionNet`` (64 features, 8 RDBs, temporal window
    1, flow at half resolution, bfloat16) with seeded weights, primed on
    frame 0 of a seeded 1080×1920 video and stepped with
@@ -614,6 +615,17 @@ def check_kernels(dev) -> dict:
     return summary
 
 
+def print_launch_records(dev) -> None:
+    """The depthwise layer's and the d2s kernel's launches at their serving
+    shapes (route, grid, threads, shared memory, registers, spills)."""
+    x = torch.zeros((1, H, W, 32), dtype=torch.bfloat16, device=dev)
+    print(f"launch conv_chain_dw3 (1, {H}, {W}, 32) bf16: "
+          f"{json.dumps(conv_chain.dwconv3_launch_record(x))}", flush=True)
+    x = torch.zeros((1, H, W, 12), dtype=torch.bfloat16, device=dev)
+    print(f"launch d2s_packed (1, {H}, {W}, 12) bf16 s=2: {json.dumps(d2s.launch_record(x, 2))}",
+          flush=True)
+
+
 def check_correlation_exact(dev, ms: float) -> None:
     """The correlation on the exact-sum input at the serving shape: bit-exact
     against its plain version, each value inside the frame 2⁻¹⁸ / C; then the
@@ -996,6 +1008,7 @@ def main() -> int:
         launch_path(dev)
     with phase("kernels"):
         summary = check_kernels(dev)
+        print_launch_records(dev)
         print(json.dumps({"conv": measure(dev, reps=5, small=False)}), flush=True)
     g = torch.Generator().manual_seed(1)
     video = [torch.rand((1, H, W, 3), generator=g).to(dev) for _ in range(STEPS + 1)]

@@ -20,10 +20,20 @@ enum { NT_F32 = 0, NT_BF16 = 1, NT_I8 = 2 };
 enum { NT_TAPS_DY = 0, NT_TAPS_DX = 1, NT_TAPS_INT32 = 2 };
 // Flags of nt_rdb_taps_conv.
 enum { NT_TAPS_ACC_DTYPE = 1, NT_TAPS_NOSHIFT = 2, NT_TAPS_MATONLY = 4 };
+// Routes of nt_dwconv3.
+enum { NT_DW_TMA = 0, NT_DW_TILE = 1 };
 
 // Depth-to-space into packed rows: (B, H, W, C*s*s) -> (B, H*s, W*s*C).
 int nt_d2s_packed(const void* x, void* out, int b, int h, int w, int c, int s,
                   int dtype, void* stream);
+
+// The launch nt_d2s_packed makes for these arguments, without launching:
+// rec[0..10] = grid, threads, dynamic shared bytes, static shared bytes,
+// registers a thread, local (spill) bytes a thread, segments, pixels a
+// segment, stages, bulk copies (1) or element loads (0), per-thread gather
+// offsets fixed (1) or computed per element (0). stream unused.
+int nt_d2s_packed_launch(const void* x, const void* out, int b, int h, int w,
+                         int c, int s, int dtype, int* rec, void* stream);
 
 // The same from channel-planar phases: (B, C*s*s, H, W) -> (B, H*s, W*s*C).
 int nt_d2s_packed_planar(const void* x, void* out, int b, int h, int w, int c,
@@ -56,11 +66,22 @@ int nt_conv2d(const void* x0, const void* x1, const void* x2, int nx,
               int h, int w_, int ksize, int relu, int dtype, void* stream);
 
 // One SAME depthwise 3x3 layer: out[..., c] = sum over the 9 taps of
-// x[y+dy-1, x+dx-1, c] * w[dy, dx, c], rounded to the dtype, + bias[c],
-// relu if asked, rounded to the dtype. x and out (B, H, W, c), c <= 64;
-// w (3, 3, c).
+// x[y+dy-1, x+dx-1, c] * w[dy, dx, c] (w rounded to the dtype here),
+// rounded to the dtype, + bias[c], relu if asked, rounded to the dtype. x
+// and out (B, H, W, c), c <= 64; w (3, 3, c) and bias (c) float32. route
+// NT_DW_TMA takes c * element size a multiple of 16 and x, out 16-byte
+// aligned; NT_DW_TILE any c and alignment (ops/conv_chain.py
+// `dwconv3_route`).
 int nt_dwconv3(const void* x, const float* w, const float* bias, void* out,
-               int c, int b, int h, int w_, int relu, int dtype, void* stream);
+               int c, int b, int h, int w_, int relu, int route, int dtype,
+               void* stream);
+
+// The launch nt_dwconv3 makes for these arguments, without launching:
+// rec[0..8] = grid, threads, dynamic shared bytes, static shared bytes,
+// registers a thread, local (spill) bytes a thread, tiles, tile height,
+// tile width. stream unused.
+int nt_dwconv3_launch(const void* x, const void* out, int c, int b, int h,
+                      int w_, int route, int dtype, int* rec, void* stream);
 
 // A whole chain of SAME 3x3 / 1x1 / depthwise 3x3 layers on planar
 // x (B, C0, H, W) -> out (B, Cout, H, W), every intermediate in shared

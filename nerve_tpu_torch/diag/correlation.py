@@ -30,11 +30,6 @@ first on the path and prints its location first.
 from __future__ import annotations
 
 import json
-import re
-import shutil
-import subprocess
-import time
-from collections import Counter
 from pathlib import Path
 
 import torch
@@ -42,7 +37,7 @@ import torch
 import nerve_tpu_torch
 from nerve_tpu_torch import ops
 from nerve_tpu_torch.diag import _common
-from nerve_tpu_torch.ops import _build, correlation
+from nerve_tpu_torch.ops import correlation
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # the same, float32 outside the tensor cores
@@ -117,49 +112,6 @@ def check(dev) -> None:
         raise AssertionError("correlation kernel differs from its plain version on the exact sum")
 
 
-def profile_kernel(fn, out_dir: Path, n: int = 10) -> dict:
-    """torch.profiler over ``n`` calls: the kernel's device ms per call."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    out_dir.mkdir(parents=True, exist_ok=True)
-    fn()
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    trace = out_dir / "trace_correlation.json"
-    prof.export_chrome_trace(str(trace))
-    kernels = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("cat") == "kernel"]
-    mine = [e for e in kernels if "corr" in e["name"]]
-    row = {"kernel_ms_per_call": sum(e["dur"] for e in mine) / 1e3 / n,
-           "launches_per_call": len(mine) / n,
-           "other_kernels_per_call": (len(kernels) - len(mine)) / n, "wall_ms_per_call": wall / n}
-    print(f"profile correlation: {json.dumps(row)}", flush=True)
-    return row
-
-
-def sass_counts() -> Counter:
-    """Opcode counts of ``corr_kernel<__nv_bfloat16, 4>`` in the built library."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True, text=True,
-                          check=True).stdout
-    counts, mine = Counter(), False
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            mine = "corr_kernel" in m.group(1) and "bfloat16" in m.group(1) and "Li4E" in m.group(1)
-            continue
-        op = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-        if mine and op:
-            counts[op.group(1)] += 1
-    print("sass corr_kernel<bf16, 4>: " + ", ".join(f"{k} {n}" for k, n in counts.most_common()),
-          flush=True)
-    return counts
-
-
 def main(argv=None) -> dict:
     p = _common.parser(__doc__.splitlines()[0])
     p.add_argument("--profile", metavar="DIR",
@@ -194,12 +146,16 @@ def main(argv=None) -> dict:
     if args.profile:
         if dev.type != "cuda":
             raise SystemExit("--profile traces the card: run it with --device cuda")
-        result["profile"] = profile_kernel(lambda: ops.correlation_volume(f1, f2, 4),
-                                           Path(args.profile))
+        result["profile"] = _common.profile_calls(lambda: ops.correlation_volume(f1, f2, 4),
+                                                  Path(args.profile), "correlation", ("corr",))
     if args.sass:
         if dev.type != "cuda":
             raise SystemExit("--sass reads the built kernels: run it with --device cuda")
-        result["sass"] = dict(sass_counts())
+        counts = _common.sass_opcodes(lambda name: "corr_kernel" in name and "bfloat16" in name
+                                      and "Li4E" in name)
+        print("sass corr_kernel<bf16, 4>: " + ", ".join(f"{k} {n}" for k, n in
+                                                        counts.most_common()), flush=True)
+        result["sass"] = dict(counts)
     print(json.dumps(result))
     return result
 

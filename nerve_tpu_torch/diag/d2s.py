@@ -1,5 +1,5 @@
 """Packed depth-to-space candidates at 1080p → 2160p:
-``python -m nerve_tpu_torch.diag.d2s [--device cpu] [--small]``.
+``python -m nerve_tpu_torch.diag.d2s [--profile DIR] [--device cpu] [--small]``.
 
 Counterpart of ``scripts/diag_d2s.py``: twelve bfloat16 phase channels
 (3 colours, scale 2) into (1, 2160, 11520) packed rows, from NHWC phases
@@ -8,16 +8,25 @@ script's ``d2s_packed_mxu``) and from channel-planar phases with
 ``ops.depth_to_space_packed_planar`` (``nt_d2s_packed_planar``, the
 script's ``d2s_packed_planar``), beside the library's
 ``F.pixel_shuffle`` + permute for each layout. The kernels are held
-bit-exact against their plain versions first.
+bit-exact against their plain versions first. On the card it also prints
+``nt_d2s_packed``'s launch record (grid, threads, shared memory, registers
+and spills, segments, stages, bulk copies or element loads) and ptxas's
+usage of the d2s kernels from the build log, and with ``--profile DIR``
+each kernel's device time and launches per call under ``torch.profiler``.
+It measures the ``nerve_tpu_torch`` that is first on the path and prints
+its location first; the last line is one JSON object.
 """
 
 from __future__ import annotations
 
 import importlib
+import json
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
+import nerve_tpu_torch
 from nerve_tpu_torch import ops
 from nerve_tpu_torch.diag import _common
 
@@ -53,8 +62,11 @@ def cases(x: torch.Tensor) -> dict:
 
 def main(argv=None) -> dict:
     p = _common.parser(__doc__.splitlines()[0])
+    p.add_argument("--profile", metavar="DIR",
+                   help="also trace each kernel's calls, writing the traces into DIR")
     args = p.parse_args(argv)
     dev = _common.device_of(args)
+    print(f"package {nerve_tpu_torch.__file__}", flush=True)
     g = torch.Generator().manual_seed(0)
     for dt in (torch.float32, torch.bfloat16):
         x = torch.rand((2, 13, 37, 12), generator=g).to(dev, dt)
@@ -67,10 +79,28 @@ def main(argv=None) -> dict:
           "calls against the NHWC plain version (float32, bf16)", flush=True)
     h, w = (16, 40) if args.small else (1080, 1920)
     x = torch.rand((1, h, w, 12), generator=g).to(dev, torch.bfloat16)
-    times = {name: _common.median_ms(fn, dev, args.reps) for name, (fn, _p) in cases(x).items()}
+    calls = cases(x)
+    times = {name: _common.median_ms(fn, dev, args.reps) for name, (fn, _p) in calls.items()}
     for name, ms in times.items():
-        print(f"time {name:32s} {ms:8.3f} ms ({h}x{w}x12 -> {S * h}x{S * w * 3} bf16)",
+        print(f"time {name:32s} {ms:8.4f} ms ({h}x{w}x12 -> {S * h}x{S * w * 3} bf16)",
               flush=True)
+    result = {"ms": times}
+    if dev.type == "cuda":
+        if hasattr(ps, "launch_record"):
+            result["launch"] = ps.launch_record(x, S)
+            print(f"launch d2s_packed: {json.dumps(result['launch'])}", flush=True)
+        result["ptxas"] = _common.ptxas_usage("d2s")
+        for line in result["ptxas"]:
+            print(f"ptxas {line}", flush=True)
+    if args.profile:
+        if dev.type != "cuda":
+            raise SystemExit("--profile traces the card: run it with --device cuda")
+        result["profile"] = {
+            name: _common.profile_calls(calls[name][0], Path(args.profile), label, (word,))
+            for name, label, word in (
+                ("depth_to_space_packed (NHWC)", "d2s_packed", "d2s_packed_kernel"),
+                ("depth_to_space_packed_planar", "d2s_packed_planar", "d2s_planar_kernel"))}
+    print(json.dumps(result))
     return times
 
 

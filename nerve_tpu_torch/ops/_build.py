@@ -39,6 +39,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> (restype, argtypes); see csrc/nerve_tpu_torch.h.
 SIGNATURES = {
     "nt_d2s_packed": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_d2s_packed_launch": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P)),
     "nt_d2s_packed_planar": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "nt_rdb_taps_conv": (_I, (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P)),
     "nt_probe_scale2": (_I, (_P, _P, _I, _P)),
@@ -46,7 +47,8 @@ SIGNATURES = {
     "nt_correlation_launch": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P)),
     "nt_conv2d": (_I, (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P)),
-    "nt_dwconv3": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_dwconv3": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_dwconv3_launch": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P)),
     "nt_planar_chain": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "nt_rdb_lff": (_I, (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P)),
     "nt_conv2d_i8": (_I, (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

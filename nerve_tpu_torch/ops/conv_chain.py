@@ -15,6 +15,13 @@ dense layer (counter ``conv_chain``), ``csrc/dwconv3.cu`` for a depthwise
 one (counter ``conv_chain_dw3``). A CPU tensor runs ``conv_chain_plain``
 (``F.conv2d``).
 
+The depthwise kernel takes the float32 ``(3, 3, C)`` weights as they are
+and rounds them itself, so a depthwise layer is one launch and one
+``torch.empty``. It has two routes, chosen by shape (``dwconv3_route``):
+``"tma"`` (persistent blocks fed by TMA boxes) where a pixel is a multiple
+of 16 bytes and both tensors are 16-byte aligned, ``"tile"`` (one block per
+staged tile) for any other C or alignment.
+
 The bfloat16 dense layer takes its weights as the image of
 ``pack_conv_weights`` (packed here once per call) and its input through TMA
 tensor maps, which need 16-byte pixel strides: ``input_route`` is the rule,
@@ -28,6 +35,7 @@ tensor (a list is concatenated first).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence, Tuple
 
 import torch
@@ -37,6 +45,9 @@ from nerve_tpu_torch.ops import _build, dispatch
 
 Entry = Tuple[torch.Tensor, torch.Tensor, str]
 MAX_DW_CHANNELS = 64  # csrc/dwconv3.cu stages every channel of its tile
+DW_ROUTES = {"tma": 0, "tile": 1}  # csrc/nerve_tpu_torch.h NT_DW_TMA, NT_DW_TILE
+DW_LAUNCH_RECORD = ("grid", "threads", "dynamic_smem_bytes", "static_smem_bytes", "registers",
+                    "spill_bytes", "tiles", "tile_h", "tile_w")
 N_TILES = (8, 16, 32, 64, 128)  # the bf16 kernel's output-channel tiles (wgmma N)
 CHUNK = 16  # input channels per K step of the bf16 kernel
 MAX_PARTS = 3  # input tensors the bf16 kernel reads in place
@@ -186,23 +197,67 @@ def conv_layer_launch(x, cin: int, w: torch.Tensor, bias: torch.Tensor,
                   b, h, wd, k, int(relu), _build.dtype_code(out))
 
 
-def dwconv3_launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                   out: torch.Tensor, relu: bool) -> None:
-    """Launch ``nt_dwconv3``: one depthwise 3×3 layer, ``x`` → ``out``, both
-    contiguous (B, H, W, C) on CUDA. ``w`` float32 (3, 3, C), ``bias``
-    float32 (C,) (the caller rounds them)."""
+def dwconv3_route(shape: Sequence[int], dtype: torch.dtype, aligned: bool) -> str:
+    """The depthwise kernel's route for an NHWC input of ``shape`` and
+    ``dtype`` whose input and output both start on 16 bytes (``aligned``).
+
+    ``"tma"``: a pixel is a multiple of 16 bytes (C a multiple of 8 in
+    bfloat16, of 4 in float32; a TMA tensor map needs 16-byte strides) and
+    the tensors are aligned. ``"tile"``: any other C (1..64) or alignment.
+    B, H and W do not matter."""
+    c = shape[-1]
+    return "tma" if aligned and c * dtype.itemsize % 16 == 0 else "tile"
+
+
+def _dw_operands(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, out: torch.Tensor):
+    """Check a depthwise layer's tensors; return ``w`` as the kernel takes it:
+    float32 ``(3, 3, C)``, contiguous (the kernel rounds it to the input
+    dtype). A weight of another dtype, or a non-contiguous one, is rounded to
+    the input dtype here and widened (a no-op on the serving path)."""
     b, h, wd, c = x.shape
     if tuple(w.shape) != (3, 3, c) or tuple(bias.shape) != (c,) or out.shape != x.shape:
         raise ValueError(f"depthwise layer {tuple(w.shape)}, bias {tuple(bias.shape)} does "
                          f"not fit input {tuple(x.shape)} / output {tuple(out.shape)}")
     if not 1 <= c <= MAX_DW_CHANNELS:
         raise ValueError(f"the depthwise kernel takes 1..{MAX_DW_CHANNELS} channels, got {c}")
-    if not (x.is_contiguous() and out.is_contiguous() and w.is_contiguous()
-            and bias.is_contiguous() and out.dtype == x.dtype
-            and w.dtype == bias.dtype == torch.float32):
-        raise ValueError("depthwise layer takes contiguous tensors and float32 weights")
+    if not (x.is_contiguous() and out.is_contiguous() and bias.is_contiguous()
+            and out.dtype == x.dtype and bias.dtype == torch.float32):
+        raise ValueError("depthwise layer takes contiguous tensors and a float32 bias")
+    if w.dtype != torch.float32 or not w.is_contiguous():
+        w = w.to(x.dtype).float().contiguous()
+    return w
+
+
+def _dw_route(x: torch.Tensor, out: torch.Tensor) -> str:
+    return dwconv3_route(x.shape, x.dtype, x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+
+
+def dwconv3_launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                   out: torch.Tensor, relu: bool) -> None:
+    """Launch ``nt_dwconv3``: one depthwise 3×3 layer, ``x`` → ``out``, both
+    contiguous (B, H, W, C) on CUDA, on the route ``dwconv3_route`` gives.
+    ``w`` (3, 3, C), float32 as the model keeps it; ``bias`` float32 (C,)."""
+    w = _dw_operands(x, w, bias, out)
+    b, h, wd, c = x.shape
     _build.launch("nt_dwconv3", x.device, x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                  out.data_ptr(), c, b, h, wd, int(relu), _build.dtype_code(x))
+                  out.data_ptr(), c, b, h, wd, int(relu), DW_ROUTES[_dw_route(x, out)],
+                  _build.dtype_code(x))
+
+
+def dwconv3_launch_record(x: torch.Tensor) -> dict:
+    """What a depthwise layer on ``x`` (contiguous NHWC on CUDA) launches,
+    without launching it: the route, grid, threads, shared memory, the
+    kernel's registers and spill bytes (``cudaFuncGetAttributes``), the
+    number of tiles and the tile's height and width."""
+    if not dispatch.use_kernel(x):
+        raise ValueError("the launch record is the card's: pass a CUDA tensor")
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    b, h, wd, c = x.shape
+    route = _dw_route(x, out)
+    rec = (ctypes.c_int * len(DW_LAUNCH_RECORD))()
+    _build.launch("nt_dwconv3_launch", x.device, x.data_ptr(), out.data_ptr(), c, b, h, wd,
+                  DW_ROUTES[route], _build.dtype_code(x), ctypes.addressof(rec))
+    return {"route": route, **dict(zip(DW_LAUNCH_RECORD, rec))}
 
 
 def conv_chain_apply(x, params: Sequence[Entry]) -> torch.Tensor:
@@ -221,8 +276,7 @@ def conv_chain_apply(x, params: Sequence[Entry]) -> torch.Tensor:
         out = torch.empty((*xs[0].shape[:3], cout), dtype=xs[0].dtype, device=xs[0].device)
         bk = bias.float().contiguous()
         if kind == "dw3":
-            dwconv3_launch(_concat(h).contiguous(), w.to(out.dtype).float().contiguous(), bk,
-                           out, act == "relu")
+            dwconv3_launch(_concat(h).contiguous(), w, bk, out, act == "relu")
             dispatch.launches["conv_chain_dw3"] += 1
         else:
             conv_layer_launch(h, cin, w, bk, out, 0, act == "relu")

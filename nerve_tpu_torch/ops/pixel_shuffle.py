@@ -6,7 +6,9 @@ output channel ``c`` at spatial offset ``(i, j)``.
 
 ``depth_to_space_packed`` is the serving epilogue's layout: (B, sH, sW*C)
 packed rows, byte-identical to row-major (B, sH, sW, C). On a CUDA tensor it
-runs the hand-written kernel ``csrc/d2s_packed.cu``; on a CPU tensor its
+runs the hand-written kernel ``csrc/d2s_packed.cu`` (persistent blocks, each
+input row segment staged in shared memory once and written to all s output
+rows; ``launch_record`` says how a call launches); on a CPU tensor its
 plain version ``depth_to_space_packed_plain``. ``depth_to_space_packed_planar``
 writes the same rows from channel-planar phases (B, C*s², H, W), the input
 of ``scripts/diag_d2s.py``'s planar kernel, with ``nt_d2s_packed_planar``.
@@ -15,10 +17,15 @@ of ``scripts/diag_d2s.py``'s planar kernel, with ``nt_d2s_packed_planar``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from nerve_tpu_torch.ops import _build, dispatch
 
+LAUNCH_RECORD = ("grid", "threads", "dynamic_smem_bytes", "static_smem_bytes", "registers",
+                 "spill_bytes", "segments", "segment_pixels", "stages", "bulk_copy",
+                 "fixed_offsets")
 
 def _check_channels(c_in: int, scale: int) -> int:
     if c_in % (scale * scale) != 0:
@@ -61,6 +68,24 @@ def depth_to_space_packed(x: torch.Tensor, scale: int) -> torch.Tensor:
                   b, h, w, c, scale, _build.dtype_code(x))
     dispatch.launches["d2s_packed"] += 1
     return out
+
+
+def launch_record(x: torch.Tensor, scale: int) -> dict:
+    """What ``depth_to_space_packed(x, scale)`` launches on the card, without
+    launching it: grid, threads, shared memory, the kernel's registers and
+    spill bytes (``cudaFuncGetAttributes``), the row segments and their
+    pixels, the stages, whether segments arrive by bulk copies (else element
+    loads) and whether each thread's gather offsets are fixed."""
+    if not dispatch.use_kernel(x):
+        raise ValueError("the launch record is the card's: pass a CUDA tensor")
+    b, h, w, c_in = x.shape
+    c = _check_channels(c_in, scale)
+    x = x.contiguous()
+    out = torch.empty((b, h * scale, w * scale * c), dtype=x.dtype, device=x.device)
+    rec = (ctypes.c_int * len(LAUNCH_RECORD))()
+    _build.launch("nt_d2s_packed_launch", x.device, x.data_ptr(), out.data_ptr(), b, h, w, c,
+                  scale, _build.dtype_code(x), ctypes.addressof(rec))
+    return dict(zip(LAUNCH_RECORD, rec))
 
 
 def _check_planar(x: torch.Tensor, scale: int):

@@ -35,6 +35,8 @@ bit-exact.
 """
 
 import importlib
+import json
+import math
 
 import pytest
 import torch
@@ -233,6 +235,90 @@ def test_conv_chain_dw3(cuda, dtype, c):
     assert dispatch.launches["conv_chain_dw3"] == n0["conv_chain_dw3"] + 2
     assert dispatch.launches["conv_chain"] == n0["conv_chain"] + 1
     _check("conv_chain", got, conv_chain.conv_chain_plain(x, params), dtype)
+
+
+# The depthwise layer's two routes (ops.conv_chain.dwconv3_route): C = 8,
+# 16, 32, 64 take "tma" in both dtypes; 3, 12, 20 take "tile" in bfloat16
+# (12 and 20 are 48- and 80-byte pixels in float32: "tma"). 97 x 261 leaves
+# partial tiles on the bottom and right edges of every tile geometry.
+DW_CHANNELS = [8, 16, 32, 64, 3, 12, 20]
+
+
+def _dw_case(g, shape, c, act, dtype, dev):
+    x = _rand(g, *shape, c).to(dev, dtype)
+    return x, [_dw_params(g, c, act, dev)]
+
+
+def _dw_check(x, layer, route):
+    """One launch on ``route``, against the plain version at the gate;
+    returns max|err|."""
+    out = torch.empty_like(x)
+    assert conv_chain._dw_route(x, out) == route
+    n0 = dispatch.launches["conv_chain_dw3"]
+    got = ops.conv_chain_apply(x, layer)
+    assert dispatch.launches["conv_chain_dw3"] == n0 + 1
+    ref = conv_chain.conv_chain_plain(x, layer)
+    _check("conv_chain", got, ref, x.dtype)
+    return (got.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["relu", "none"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", DW_CHANNELS)
+def test_dw3_routes(cuda, c, dtype, act):
+    g = torch.Generator().manual_seed(30 + c)
+    x, layer = _dw_case(g, (2, 97, 261), c, act, dtype, cuda)
+    route = conv_chain.dwconv3_route(x.shape, dtype, True)
+    assert route == ("tma" if c * x.element_size() % 16 == 0 else "tile")
+    print(f"dw3 C={c} {dtype} {act} {route}: max|err| {_dw_check(x, layer, route):.3e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [8, 32, 64])
+def test_dw3_many_tiles_per_block(cuda, c, dtype):
+    """A frame where every persistent block walks several tiles through both
+    stages."""
+    g = torch.Generator().manual_seed(40 + c)
+    x, layer = _dw_case(g, (2, 961, 1027), c, "relu", dtype, cuda)
+    rec = conv_chain.dwconv3_launch_record(x)
+    assert rec["route"] == "tma" and rec["tiles"] >= 3 * rec["grid"], rec
+    print(f"dw3 many tiles C={c} {dtype} {rec}: max|err| {_dw_check(x, layer, 'tma'):.3e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw3_unaligned_base(cuda, dtype):
+    """An input 2 elements into its storage is off 16 bytes: "tile"."""
+    g = torch.Generator().manual_seed(50)
+    shape = (2, 37, 45, 32)
+    base = _rand(g, math.prod(shape) + 2).to(cuda, dtype)
+    x = base[2:].view(shape)
+    print(f"dw3 unaligned {dtype}: max|err| "
+          f"{_dw_check(x, [_dw_params(g, 32, 'relu', cuda)], 'tile'):.3e}")
+
+
+@pytest.mark.cuda
+def test_dw3_one_kernel_per_layer(cuda, tmp_path):
+    """A depthwise layer is one kernel launch: no ATen op on its weights."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator().manual_seed(51)
+    x = _rand(g, 1, 64, 96, 32).to(cuda, torch.bfloat16)
+    layers = [_dw_params(g, 32, "relu", cuda), _dw_params(g, 32, "none", cuda)]
+    ops.conv_chain_apply(x, layers)
+    torch.cuda.synchronize()
+    n0 = dispatch.launches["conv_chain_dw3"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.conv_chain_apply(x, layers)
+        torch.cuda.synchronize()
+    assert dispatch.launches["conv_chain_dw3"] == n0 + 2
+    trace = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    kernels = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert len(kernels) == 2 and all("dw3" in k for k in kernels), kernels
 
 
 @pytest.mark.cuda
@@ -661,6 +747,48 @@ def test_rdb_taps_matonly_launches(cuda):
     assert ops.rdb_taps_apply(x, params, "matonly").shape == x.shape
     torch.cuda.synchronize()
     assert dispatch.launches["rdb_taps"] == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 3, 4, 8])
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_d2s_packed_scales(cuda, s, c, dtype):
+    """B = 2; W = 37 gives input rows that are not a multiple of 16 bytes
+    (element loads) wherever C * s * s * W * size is not, W = 64 rows that
+    are (bulk copies)."""
+    g = torch.Generator().manual_seed(60 + 10 * s + c)
+    for w in (37, 64):
+        x = _rand(g, 2, 5, w, c * s * s).to(cuda, dtype)
+        rec = d2s.launch_record(x, s)
+        assert rec["bulk_copy"] == (w * c * s * s * x.element_size() % 16 == 0), rec
+        n0 = dispatch.launches["d2s_packed"]
+        got = ops.depth_to_space_packed(x, s)
+        assert dispatch.launches["d2s_packed"] == n0 + 1
+        assert torch.equal(got, d2s.depth_to_space_packed_plain(x, s)), (w, rec)
+
+
+D2S_CASES = {  # name -> (shape, scale, storage offset in elements, record key, value)
+    "serving": ((1, 1080, 1920, 12), 2, 0, "bulk_copy", 1),
+    "unaligned": ((2, 9, 40, 12), 2, 1, "bulk_copy", 0),
+    "long_rows": ((2, 3, 2500, 4), 2, 0, "segments", 2 * 3 * 2),  # 2 segments a row
+    "per_element_offsets": ((2, 3, 9, 67 * 16), 4, 0, "fixed_offsets", 0),  # s * pv > the block
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(D2S_CASES))
+def test_d2s_packed_layouts(cuda, case, dtype):
+    shape, s, off, key, want = D2S_CASES[case]
+    g = torch.Generator().manual_seed(70)
+    x = _rand(g, math.prod(shape) + off).to(cuda, dtype)[off:].view(shape)
+    rec = d2s.launch_record(x, s)
+    assert rec[key] >= want if key == "segments" else rec[key] == want, rec
+    n0 = dispatch.launches["d2s_packed"]
+    got = ops.depth_to_space_packed(x, s)
+    assert dispatch.launches["d2s_packed"] == n0 + 1
+    assert torch.equal(got, d2s.depth_to_space_packed_plain(x, s)), rec
 
 
 @pytest.mark.cuda

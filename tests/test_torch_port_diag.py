@@ -315,7 +315,7 @@ def test_per_channel_rdb_stack_matches_flax(monkeypatch):
 # The entry points
 # --------------------------------------------------------------------------- #
 @pytest.mark.parametrize("name", ["probe", "rdb_int8", "rdb", "rdb_s2d", "d2s", "warp", "planar",
-                                  "correlation"])
+                                  "correlation", "depthwise"])
 def test_diag_entry_point_runs_on_cpu(name, capsys):
     mod = importlib.import_module(f"nerve_tpu_torch.diag.{name}")
     mod.main(["--device", "cpu"] + ([] if name == "probe" else ["--small", "--reps", "1"]))
