@@ -6,10 +6,11 @@
 Phases, each of which raises on failure and prints its wall time:
 
 1. Build: ``nvcc`` compiles ``nerve_tpu_torch/csrc`` for ``sm_90a``; the
-   dense-convolution and RDB-fusion kernels' SASS must hold warpgroup
-   products and no ``mma.sync`` products: ``HGMMA`` and no ``HMMA`` for the
-   bf16 layer and fusion, ``IGMMA`` and no ``IMMA`` for the int8 layer and
-   fusion, each instance printed with its ptxas registers and spills.
+   dense-convolution, RDB-fusion and ``rdb_taps`` kernels' SASS must hold
+   warpgroup products and no ``mma.sync`` products: ``HGMMA`` and no
+   ``HMMA`` for the bf16 layer, fusion and ``rdb_taps`` layer, ``IGMMA``
+   and no ``IMMA`` for the int8 layer and fusion, each instance printed
+   with its ptxas registers and spills.
 2. Device: the probe of ``diag.probe`` (a matrix product and the probe
    kernel), then the card's name and power limit (``nvidia-smi``); TF32 off;
    the host cost of one launch through ``_build.launch`` and the probe's
@@ -46,8 +47,14 @@ Phases, each of which raises on failure and prints its wall time:
    ``diag.conv.int_mm_yardstick``). Then the bf16 dense
    convolution per conv-chain site and per dense layer of one RDB block,
    each beside cuDNN and its own bound (``diag.conv``, one ``{"conv"}``
-   line), and the launch records of the depthwise layer and the d2s kernel
-   at their serving shapes.
+   line). The depthwise layer also runs wider than one 64-channel slice (C
+   = 96, 128, 200) on both routes and in both dtypes, and the planar chain
+   (the lightweight body) on frames holding one +Inf, one -Inf and one NaN:
+   its output must be not finite exactly where its plain version's is, its
+   finite values within the chain's limit. Last, the launch records of the
+   depthwise layer (32 and 128 channels), both d2s kernels (the planar one
+   also at odd widths with s = 3, 4) and the bf16 ``rdb_taps`` layer under
+   each contract (cin 192, and 384 at growth 64).
 4. bf16 slice: ``SuperResolutionNet`` (64 features, 8 RDBs, temporal window
    1, flow at half resolution, bfloat16) with seeded weights, primed on
    frame 0 of a seeded 1080×1920 video and stepped with
@@ -71,9 +78,12 @@ Phases, each of which raises on failure and prints its wall time:
    per-channel ``int32_taps`` and dx-major schemes (bit-exact), the RDB
    under each TPU rounding contract and its ablations (``ops.rdb_taps``;
    in bfloat16 a contract's mean|Δ| against its own plain version must be
-   at most ¼ of that against any other contract's), the planar d2s and the
-   probe kernel, at a small ragged shape in float32 and bfloat16 and at the
-   serving shapes (the contracts ``pallas_dx`` and ``s2d``);
+   at most ¼ of that against any other contract's), the planar d2s (also
+   at odd widths with s = 3, 4) and the probe kernel, at a small ragged
+   shape in float32 and bfloat16, with every contract also over many tiles
+   at 1 × 131 × 517 × 64 and in a block of 128 features and growth 64 (cin
+   up to 384), and at the serving shapes (every contract and the ``noshift``
+   and ``nolff`` ablations at 1080p × 64);
    (b) the int8 slice once more with ``rdb_int8.PER_CHANNEL_INT8 = True``
    and the model built inside ``torch.inference_mode()`` (the same checks):
    ``rdb_int8_int32_taps`` must launch, the output must agree with its
@@ -288,16 +298,18 @@ def rdb_ops(plist, npix: int) -> int:
 SASS_PRODUCTS = {"conv_wgmma_kernel": ("HGMMA", "HMMA"),
                  "conv_i8_wgmma_kernel": ("IGMMA", "IMMA"),
                  "lff_wgmma_kernel": ("HGMMA", "HMMA"),
-                 "lff_i8_wgmma_kernel": ("IGMMA", "IMMA")}
+                 "lff_i8_wgmma_kernel": ("IGMMA", "IMMA"),
+                 "taps_wgmma_kernel": ("HGMMA", "HMMA")}
 
 
 def check_sass(lib: Path) -> None:
     """The dense-convolution kernels (``conv_wgmma_kernel<K, N>``, bf16;
-    ``conv_i8_wgmma_kernel<K, N, MODE>``, int8) and the RDB fusions
-    (``lff_wgmma_kernel``, ``lff_i8_wgmma_kernel``) must each be in the
-    library and issue warpgroup products and no ``mma.sync`` products
-    (``SASS_PRODUCTS``): print each instance's counts and its ptxas
-    registers and spills."""
+    ``conv_i8_wgmma_kernel<K, N, MODE>``, int8), the RDB fusions
+    (``lff_wgmma_kernel``, ``lff_i8_wgmma_kernel``) and the bf16 RDB layer
+    under the TPU rounding contracts (``taps_wgmma_kernel<N, FAMILY>``)
+    must each be in the library and issue warpgroup products and no
+    ``mma.sync`` products (``SASS_PRODUCTS``): print each instance's counts
+    and its ptxas registers and spills."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -616,14 +628,78 @@ def check_kernels(dev) -> dict:
 
 
 def print_launch_records(dev) -> None:
-    """The depthwise layer's and the d2s kernel's launches at their serving
-    shapes (route, grid, threads, shared memory, registers, spills)."""
-    x = torch.zeros((1, H, W, 32), dtype=torch.bfloat16, device=dev)
-    print(f"launch conv_chain_dw3 (1, {H}, {W}, 32) bf16: "
-          f"{json.dumps(conv_chain.dwconv3_launch_record(x))}", flush=True)
+    """The launches of the depthwise layer (the serving shape, and 128
+    channels in two slices), the d2s kernels (NHWC and planar at the
+    serving shape, planar at odd widths with s = 3, 4) and the bf16
+    ``rdb_taps`` layer under each contract (the widest layer of a 1080p ×
+    64 block, cin 192, and cin 384 at growth 64): route or plan, grid,
+    threads, shared memory, registers, spills."""
+    for c in (32, 128):
+        x = torch.zeros((1, H, W, c), dtype=torch.bfloat16, device=dev)
+        print(f"launch conv_chain_dw3 (1, {H}, {W}, {c}) bf16: "
+              f"{json.dumps(conv_chain.dwconv3_launch_record(x))}", flush=True)
     x = torch.zeros((1, H, W, 12), dtype=torch.bfloat16, device=dev)
     print(f"launch d2s_packed (1, {H}, {W}, 12) bf16 s=2: {json.dumps(d2s.launch_record(x, 2))}",
           flush=True)
+    for shape, s in (((1, 12, H, W), 2), ((1, 27, 9, 41), 3), ((2, 32, 7, 33), 4)):
+        x = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+        print(f"launch d2s_packed_planar {shape} bf16 s={s}: "
+              f"{json.dumps(d2s.planar_launch_record(x, s))}", flush=True)
+    x = torch.zeros((1, H, W, FEATURES), dtype=torch.bfloat16, device=dev)
+    for mode in rdb_taps.CONTRACTS:
+        for cin, cout in ((FEATURES + 128, 32), (384, 64)):
+            print(f"launch rdb_taps {mode} (1, {H}, {W}) cin {cin} -> {cout} bf16: "
+                  f"{json.dumps(rdb_taps.launch_record(x, cin, cout, mode))}", flush=True)
+
+
+def check_wide_depthwise(dev) -> None:
+    """The depthwise layer wider than one 64-channel slice, C = 96, 128 and
+    200, on both routes ("tile": an input 2 elements into its storage) and
+    in both dtypes, against its plain version at the conv chain's limits."""
+    g = torch.Generator().manual_seed(12)
+    for c in (96, 128, 200):
+        for dt in (torch.float32, torch.bfloat16):
+            for route, off in (("tma", 0), ("tile", 2)):
+                shape = (1, 270, 480, c)
+                x = _randn(g, (math.prod(shape) + off,)).to(dev, dt)[off:].view(shape)
+                layer = [((_randn(g, (3, 3, c)) / 3).to(dev), _randn(g, (c,), 0.1).to(dev),
+                          "relu")]
+                rec = conv_chain.dwconv3_launch_record(x)
+                if rec["route"] != route:
+                    raise AssertionError(f"dw3 C={c} {dt}: route {rec['route']}, not {route}")
+                compare(f"conv_chain_dw3 C={c} {route}", f"{shape}, {rec['slices']} slices", dt,
+                        lambda x=x, layer=layer: ops.conv_chain_apply(x, layer),
+                        lambda x=x, layer=layer: conv_chain.conv_chain_plain(x, layer),
+                        BF16_LIMITS["conv_chain_dw3"][dt == torch.bfloat16], 1.0)
+
+
+def check_planar_non_finite(dev) -> None:
+    """The lightweight body through the planar chain on planar frames holding
+    one +Inf, one -Inf and one NaN: its output must be not finite exactly
+    where the plain version's is (the plain version on the CPU, whose
+    convolutions are direct), and its finite values within the chain's
+    limit."""
+    g = torch.Generator().manual_seed(13)
+    body = [(w.detach(), b.detach(), a) for w, b, a in seeded_lightweight(dev, 3).chain()]
+    cpu_body = [(w.cpu(), b.cpu(), a) for w, b, a in body]
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.rand((2, 3, 67, 131), generator=g)
+        x[0, 0, 5, 7], x[0, 1, 40, 60], x[1, 2, 30, 128] = (float("inf"), float("-inf"),
+                                                            float("nan"))
+        got = ops.planar_chain_apply(x.to(dev, dt), body)
+        ref = planar_chain.planar_chain_plain(x.to(dt), cpu_body).to(dev)
+        bad = ~torch.isfinite(ref)
+        same = torch.equal(~torch.isfinite(got), bad)
+        scale = ref.float().masked_fill(bad, 0).abs().max().item()
+        err = (got.float() - ref.float()).masked_fill(bad, 0).abs().max().item()
+        lim = BF16_LIMITS["planar_chain"][dt == torch.bfloat16] * scale
+        ok = same and 0 < int(bad.sum()) and err <= lim
+        print(f"kernel {'planar_chain non-finite':24s} {'lightweight body 2x67x131':38s} "
+              f"{str(dt):15s} not finite {int(bad.sum())} (mask {'equal' if same else 'DIFFERS'}), "
+              f"finite max|err| {err:.3e} (limit {lim:.3e}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("the planar chain's non-finite values or finite values differ "
+                                 "from its plain version's")
 
 
 def check_correlation_exact(dev, ms: float) -> None:
@@ -661,7 +737,7 @@ def diag_kernel_cases(dev, dt, serving: bool):
         xb = _randn(g, (1, H, W, FEATURES)).to(dev, dt)
         block = _common.rdb_params(g, FEATURES, dev, dt)
         xp = torch.rand((1, 12, H, W), generator=g).to(dev, dt)
-        modes = ("pallas_dx", "s2d")
+        modes = (*rdb_taps.CONTRACTS, "noshift", "nolff")
         label = f"serving 1080p ({BLOCKS} int8 RDBs, 1 RDB)"
     else:
         xr = _randn(g, (1, 10, 33, 16), 0.5).to(dev, dt)
@@ -698,6 +774,29 @@ def diag_kernel_cases(dev, dt, serving: bool):
         cases[name] = (label, lambda m=mode: ops.rdb_taps_apply(xb, block, m),
                        lambda m=mode: rdb_taps.rdb_taps_plain(xb, block, m), lim, True, None,
                        taps_work, margin)
+    if not serving:
+        # Many tiles per block at an odd shape, and a block of 128 features
+        # and growth 64 whose widest layer reads 384 channels (two N tiles,
+        # the weights streamed with each chunk).
+        for tag, shape, c, growth in (("many tiles", (1, 131, 517), 64, 32),
+                                      ("cin 384", (1, 37, 101), 128, 64)):
+            xt = _randn(g, (*shape, c)).to(dev, dt)
+            blk = _common.rdb_params(g, c, dev, dt, growth=growth)
+            for mode in rdb_taps.CONTRACTS:
+                margin = (lambda m=mode, xt=xt, blk=blk: rdb_taps.contract_margin(
+                    ops.rdb_taps_apply(xt, blk, m), xt, blk, m)) if dt == torch.bfloat16 else None
+                cases[f"rdb_taps {tag} {mode}"] = (
+                    f"{'x'.join(map(str, shape))}x{c}, growth {growth}",
+                    lambda m=mode, xt=xt, blk=blk: ops.rdb_taps_apply(xt, blk, m),
+                    lambda m=mode, xt=xt, blk=blk: rdb_taps.rdb_taps_plain(xt, blk, m), lim,
+                    True, None, None, margin)
+        # Odd widths at s = 3 and 4 (element loads into the staged rows).
+        for shape, s in (((1, 27, 9, 41), 3), ((2, 32, 7, 33), 4)):
+            xo = torch.rand(shape, generator=g).to(dev, dt)
+            cases[f"d2s_packed_planar s={s}"] = (
+                f"{'x'.join(map(str, shape))}", lambda xo=xo, s=s: ops.depth_to_space_packed_planar(
+                    xo, s), lambda xo=xo, s=s: d2s.depth_to_space_packed_planar_plain(xo, s),
+                0.0, False, None, None, None)
     cases["d2s_packed_planar"] = (
         label, lambda: ops.depth_to_space_packed_planar(xp, 2),
         lambda: d2s.depth_to_space_packed_planar_plain(xp, 2), 0.0, False,
@@ -1008,6 +1107,8 @@ def main() -> int:
         launch_path(dev)
     with phase("kernels"):
         summary = check_kernels(dev)
+        check_wide_depthwise(dev)
+        check_planar_non_finite(dev)
         print_launch_records(dev)
         print(json.dumps({"conv": measure(dev, reps=5, small=False)}), flush=True)
     g = torch.Generator().manual_seed(1)

@@ -53,10 +53,23 @@
 //
 //   out[b, y*s + sy, (x*s + sx)*C + c] = in[b, c*s*s + sy*s + sx, y, x]
 //
-// It keeps the first port's design: one thread per 16 output bytes,
-// gathering from s*C phase planes; neighbouring threads read neighbouring
-// x of one plane. The script's `d2s_packed_mxu` computes the NHWC function
-// above and is covered by `nt_d2s_packed`.
+// It is the same kernel (PLANAR = true) with another staging. A work item
+// is still (b, input row y, W segment); the C*s*s phase planes' row
+// segments of that item arrive in one stage as C*s*s rows `pstride`
+// elements apart, by one bulk copy each where rows are 16-byte multiples
+// and the base aligned (every plane row and segment then starts on 16
+// bytes: segments are a multiple of 16 bytes of pixels), else by element
+// loads into the same buffer. The s output rows of the segment are written
+// from the stage with 16-byte stores, each thread's gather offsets fixed
+// as above (a period's source offsets are plane * pstride + x instead of
+// x * C*s*s + plane). A plane row is padded by 16 bytes, so that the
+// planes a warp reads at once start in different banks. Reading the input
+// once in rows, rather than gathering each output vector's elements from
+// planes H*W apart (the first port's design: 2-4 bytes used of each
+// 32-byte sector), is what the redesign buys. Limit: a stage holds at
+// least one 16-byte run of each plane, so C*s*s <= ~7,000 planes. The
+// script's `d2s_packed_mxu` computes the NHWC function above and is covered
+// by `nt_d2s_packed`.
 
 #include <cuda_runtime.h>
 
@@ -77,15 +90,20 @@ struct D2sParams {
   int h, w, c, s, sc, cin;
   int nseg, seg_px;    // segments of an input row, pixels of a segment
   int gpx, pv;         // input pixels and output vectors (per row) of a period
+  int gstride;         // staged elements from one period to the next
+  int pstride;         // PLANAR: staged elements from one plane's row to the next
   int fast;            // per-thread gather offsets fixed
   int stage, nstages;  // bytes of a stage, stages
   int bulk, vec_out;   // bulk copies in; 16-byte stores out
 };
 
-// Source element (in a staged segment) of element e of output row sy's segment.
+// Source element (in a staged segment) of element e of output row sy's
+// segment: pixel-major (x, plane) or, PLANAR, plane-major (plane, x).
+template <bool PLANAR>
 __device__ __forceinline__ int src_index(int e, int sy, const D2sParams& p) {
   const int x = e / p.sc, j = e - x * p.sc, sx = j / p.c, c = j - sx * p.c;
-  return x * p.cin + c * p.s * p.s + sy * p.s + sx;
+  const int plane = c * p.s * p.s + sy * p.s + sx;
+  return PLANAR ? plane * p.pstride + x : x * p.cin + plane;
 }
 
 __device__ __forceinline__ void segment_of(const D2sParams& p, long long item, long long& row,
@@ -95,18 +113,37 @@ __device__ __forceinline__ void segment_of(const D2sParams& p, long long item, l
   npx = min(p.seg_px, p.w - x0);
 }
 
-template <typename T>
+// Input element of plane k, pixel x0 + xx of input row `row` (b * h + y).
+template <typename T, bool PLANAR>
+__device__ __forceinline__ const T* src_of(const T* x, const D2sParams& p, long long row, int x0,
+                                           int k) {
+  if (!PLANAR) return x + (row * p.w + x0) * p.cin + k;
+  const long long b = row / p.h, y = row - b * p.h;
+  return x + ((b * p.cin + k) * p.h + y) * p.w + x0;
+}
+
+template <typename T, bool PLANAR>
 __device__ __forceinline__ void issue(const T* x, unsigned char* smem, uint64_t* full,
                                       const D2sParams& p, long long item, int st) {
   long long row;
   int x0, npx;
   segment_of(p, item, row, x0, npx);
-  const unsigned bytes = (unsigned)npx * p.cin * sizeof(T);
-  nt_mbar_expect_tx(&full[st], bytes);
-  nt_bulk_load(smem + st * p.stage, x + (row * p.w + x0) * p.cin, bytes, &full[st]);
+  unsigned char* dst = smem + st * p.stage;
+  if (!PLANAR) {
+    const unsigned bytes = (unsigned)npx * p.cin * sizeof(T);
+    nt_mbar_expect_tx(&full[st], bytes);
+    nt_bulk_load(dst, src_of<T, false>(x, p, row, x0, 0), bytes, &full[st]);
+    return;
+  }
+  // One bulk copy per plane's row segment, all on the stage's barrier.
+  const unsigned bytes = (unsigned)npx * sizeof(T);
+  nt_mbar_expect_tx(&full[st], bytes * p.cin);
+  for (int k = 0; k < p.cin; ++k)
+    nt_bulk_load(dst + (size_t)k * p.pstride * sizeof(T), src_of<T, true>(x, p, row, x0, k),
+                 bytes, &full[st]);
 }
 
-template <typename T>
+template <typename T, bool PLANAR>
 __global__ void __launch_bounds__(D2S_THREADS)
     d2s_packed_kernel(const T* __restrict__ x, T* __restrict__ out, const D2sParams p) {
   constexpr int VEC = 16 / sizeof(T);
@@ -119,13 +156,13 @@ __global__ void __launch_bounds__(D2S_THREADS)
   if (p.fast) {
     const int phase = v0 % p.pv;
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) off[k] = src_index(phase * VEC + k, sy, p);
+    for (int k = 0; k < VEC; ++k) off[k] = src_index<PLANAR>(phase * VEC + k, sy, p);
   }
   if (p.bulk && tid == 0) {
     for (int st = 0; st < p.nstages; ++st) nt_mbar_init(&full[st], 1);
     nt_fence_mbar_init();
     for (int r = 0; r < p.nstages && r < mine; ++r)
-      issue(x, smem, full, p, blockIdx.x + (long long)r * gridDim.x, r);
+      issue<T, PLANAR>(x, smem, full, p, blockIdx.x + (long long)r * gridDim.x, r);
   }
   __syncthreads();
 
@@ -139,9 +176,18 @@ __global__ void __launch_bounds__(D2S_THREADS)
     segment_of(p, item, row, x0, npx);
     if (p.bulk) {
       nt_mbar_wait(&full[st], (unsigned)(r / p.nstages) & 1);
-    } else {
-      const T* src = x + (row * p.w + x0) * p.cin;
+    } else if (!PLANAR) {
+      const T* src = src_of<T, false>(x, p, row, x0, 0);
       for (int e = tid; e < npx * p.cin; e += nt) buf[e] = src[e];
+      __syncthreads();
+    } else {
+      // Each plane's row segment, neighbouring threads on neighbouring x.
+      const T* src = src_of<T, true>(x, p, row, x0, 0);
+      const long long plane = (long long)p.h * p.w;
+      for (int e = tid; e < npx * p.cin; e += nt) {
+        const int k = e / npx, xx = e - k * npx;
+        buf[k * p.pstride + xx] = src[k * plane + xx];
+      }
       __syncthreads();
     }
     const int n_out = npx * p.sc;  // elements of the segment in each output row
@@ -153,14 +199,14 @@ __global__ void __launch_bounds__(D2S_THREADS)
       const int e0 = v * VEC, n = min(VEC, n_out - e0);
       alignas(16) T vals[VEC] = {};
       if (p.fast) {
-        const T* grp = buf + g * p.gpx * p.cin;
+        const T* grp = buf + g * p.gstride;
 #pragma unroll
         for (int k = 0; k < VEC; ++k)
           if (k < n) vals[k] = grp[off[k]];
       } else {
 #pragma unroll
         for (int k = 0; k < VEC; ++k)
-          if (k < n) vals[k] = buf[src_index(e0 + k, sy, p)];
+          if (k < n) vals[k] = buf[src_index<PLANAR>(e0 + k, sy, p)];
       }
       T* dst = orow + e0;
       if (p.vec_out && n == VEC) {
@@ -171,7 +217,7 @@ __global__ void __launch_bounds__(D2S_THREADS)
     }
     __syncthreads();  // every read of stage st is done
     if (p.bulk && tid == 0 && r + p.nstages < mine)
-      issue(x, smem, full, p, item + (long long)p.nstages * gridDim.x, st);
+      issue<T, PLANAR>(x, smem, full, p, item + (long long)p.nstages * gridDim.x, st);
   }
 }
 
@@ -180,7 +226,7 @@ struct D2sLaunch {
   int grid, threads, smem;
 };
 
-template <typename T>
+template <typename T, bool PLANAR>
 cudaError_t plan(const void* x, const void* out, int b, int h, int w, int c, int s,
                  D2sLaunch& l) {
   constexpr int VEC = 16 / sizeof(T), es = sizeof(T);
@@ -205,18 +251,26 @@ cudaError_t plan(const void* x, const void* out, int b, int h, int w, int c, int
   const int unit = p.fast ? s * p.pv : s;
   if (unit > D2S_THREADS) return cudaErrorInvalidValue;
   l.threads = D2S_THREADS / unit * unit;
-  const long long period_bytes = (long long)p.gpx * p.cin * es;
-  const long long seg_px = std::min<long long>(std::max<long long>(1, SEG_BYTES / period_bytes),
-                                               (w + p.gpx - 1) / p.gpx) * p.gpx;
-  const long long stage = (seg_px * p.cin * es + 127) / 128 * 128;
+  // Segments are whole periods; planar ones also whole 16-byte runs (gpx
+  // divides VEC), so that every plane row segment starts on 16 bytes.
+  const int step = PLANAR ? VEC : p.gpx;
+  const long long px_bytes = (long long)p.cin * es;  // staged bytes a pixel
+  const long long seg_px = std::min<long long>(std::max<long long>(1, SEG_BYTES / (step * px_bytes)),
+                                               (w + step - 1) / step) * step;
+  // Planar: each plane's row padded by 16 bytes (the planes start in other banks).
+  const long long pstride = PLANAR ? seg_px + VEC : 0;
+  const long long stage = ((PLANAR ? pstride : seg_px) * px_bytes + 127) / 128 * 128;
   const int room = lim.smem - MAX_STAGES * 8;
   if (stage > room || seg_px * p.cin > INT32_MAX) return cudaErrorInvalidValue;
   p.seg_px = (int)seg_px;
+  p.pstride = (int)pstride;
+  p.gstride = PLANAR ? p.gpx : p.gpx * p.cin;
   p.nseg = (int)((w + seg_px - 1) / seg_px);
   p.items = (long long)b * h * p.nseg;
   p.stage = (int)stage;
   p.nstages = (int)std::min<long long>(MAX_STAGES, room / stage);
-  p.bulk = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (long long)w * p.cin * es % 16 == 0;
+  p.bulk = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+           (long long)w * (PLANAR ? 1 : p.cin) * es % 16 == 0;
   p.vec_out = reinterpret_cast<uintptr_t>(out) % 16 == 0 && (long long)w * p.sc * es % 16 == 0;
   l.smem = p.nstages * p.stage + MAX_STAGES * 8;
 
@@ -225,15 +279,15 @@ cudaError_t plan(const void* x, const void* out, int b, int h, int w, int c, int
   static int configured[64] = {};
   static int last[64][3] = {};  // threads, shared bytes, blocks per SM
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(d2s_packed_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               lim.smem);
+    err = cudaFuncSetAttribute(d2s_packed_kernel<T, PLANAR>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, lim.smem);
     if (err != cudaSuccess) return err;
     configured[dev] = 1;
   }
   if (last[dev][0] != l.threads || last[dev][1] != l.smem || last[dev][2] < 1) {
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, d2s_packed_kernel<T>, l.threads,
-                                                        l.smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, d2s_packed_kernel<T, PLANAR>,
+                                                        l.threads, l.smem);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     last[dev][0] = l.threads;
@@ -244,82 +298,36 @@ cudaError_t plan(const void* x, const void* out, int b, int h, int w, int c, int
   return cudaSuccess;
 }
 
-template <typename T>
-cudaError_t run_packed(const void* x, void* out, int b, int h, int w, int c, int s, int* rec,
-                       cudaStream_t stream) {
+template <typename T, bool PLANAR>
+cudaError_t run(const void* x, void* out, int b, int h, int w, int c, int s, int* rec,
+                cudaStream_t stream) {
   D2sLaunch l;
-  cudaError_t err = plan<T>(x, out, b, h, w, c, s, l);
+  cudaError_t err = plan<T, PLANAR>(x, out, b, h, w, c, s, l);
   if (err != cudaSuccess) return err;
   if (rec != nullptr) {
     cudaFuncAttributes a;
-    if ((err = cudaFuncGetAttributes(&a, d2s_packed_kernel<T>)) != cudaSuccess) return err;
+    if ((err = cudaFuncGetAttributes(&a, d2s_packed_kernel<T, PLANAR>)) != cudaSuccess)
+      return err;
     const int r[11] = {l.grid, l.threads, l.smem, (int)a.sharedSizeBytes, a.numRegs,
                        (int)a.localSizeBytes, (int)std::min<long long>(l.p.items, INT32_MAX),
                        l.p.seg_px, l.p.nstages, l.p.bulk, l.p.fast};
     for (int i = 0; i < 11; ++i) rec[i] = r[i];
     return cudaSuccess;
   }
-  d2s_packed_kernel<T><<<l.grid, l.threads, l.smem, stream>>>(
+  d2s_packed_kernel<T, PLANAR><<<l.grid, l.threads, l.smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), l.p);
   return cudaGetLastError();
 }
 
-template <typename T>
-__global__ void d2s_planar_kernel(const T* __restrict__ x, T* __restrict__ out, int h,
-                                  int w, int c, int s, long long rows, int row_len,
-                                  int vec_ok) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int chunks = (row_len + VEC - 1) / VEC;
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= rows * chunks) return;
-  const long long row = t / chunks;  // b * (h*s) + oy
-  const int e0 = (int)(t % chunks) * VEC;
-  const int hs = h * s;
-  const int b = (int)(row / hs);
-  const int oy = (int)(row % hs);
-  const int y = oy / s, sy = oy % s;
-  const long long plane = (long long)h * w;
-  const T* src = x + (long long)b * c * s * s * plane + (long long)sy * s * plane +
-                 (long long)y * w;
-  const int n = min(VEC, row_len - e0);
-  alignas(16) T vals[VEC];
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) {
-    if (k < n) {
-      const int e = e0 + k;
-      const int ox = e / c, ch = e % c;
-      vals[k] = src[((long long)ch * s * s + ox % s) * plane + ox / s];
-    }
-  }
-  T* dst = out + row * (long long)row_len + e0;
-  if (vec_ok && n == VEC) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(vals);
-  } else {
-    for (int k = 0; k < n; ++k) dst[k] = vals[k];
-  }
-}
-
-template <typename T>
-cudaError_t run_planar(const void* x, void* out, int b, int h, int w, int c, int s,
-                       cudaStream_t stream) {
-  const int row_len = w * s * c;
-  const long long rows = (long long)b * h * s;
-  const int vec = 16 / sizeof(T);
-  const int vec_ok = ((long long)row_len * sizeof(T)) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const long long threads = rows * ((row_len + vec - 1) / vec);
-  const int block = 256;
-  const long long grid = (threads + block - 1) / block;
-  d2s_planar_kernel<T><<<(unsigned)grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), h, w, c, s, rows, row_len, vec_ok);
-  return cudaGetLastError();
-}
-
-int packed(const void* x, void* out, int b, int h, int w, int c, int s, int dtype, int* rec,
-           void* stream) {
+int d2s(const void* x, void* out, int b, int h, int w, int c, int s, int dtype, bool planar,
+        int* rec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == NT_BF16) return (int)run_packed<uint16_t>(x, out, b, h, w, c, s, rec, st);
-  if (dtype == NT_F32) return (int)run_packed<uint32_t>(x, out, b, h, w, c, s, rec, st);
+  if (dtype == NT_BF16)
+    return (int)(planar ? run<uint16_t, true> : run<uint16_t, false>)(x, out, b, h, w, c, s, rec,
+                                                                       st);
+  if (dtype == NT_F32)
+    return (int)(planar ? run<uint32_t, true> : run<uint32_t, false>)(x, out, b, h, w, c, s, rec,
+                                                                       st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -327,20 +335,22 @@ int packed(const void* x, void* out, int b, int h, int w, int c, int s, int dtyp
 
 extern "C" int nt_d2s_packed(const void* x, void* out, int b, int h, int w,
                              int c, int s, int dtype, void* stream) {
-  return packed(x, out, b, h, w, c, s, dtype, nullptr, stream);
+  return d2s(x, out, b, h, w, c, s, dtype, false, nullptr, stream);
 }
 
 extern "C" int nt_d2s_packed_launch(const void* x, const void* out, int b, int h, int w, int c,
                                     int s, int dtype, int* rec, void* stream) {
-  return packed(x, const_cast<void*>(out), b, h, w, c, s, dtype, rec, stream);
+  return d2s(x, const_cast<void*>(out), b, h, w, c, s, dtype, false, rec, stream);
 }
 
 extern "C" int nt_d2s_packed_planar(const void* x, void* out, int b, int h, int w, int c,
                                     int s, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == NT_BF16) return (int)run_planar<uint16_t>(x, out, b, h, w, c, s, st);
-  if (dtype == NT_F32) return (int)run_planar<uint32_t>(x, out, b, h, w, c, s, st);
-  return (int)cudaErrorInvalidValue;
+  return d2s(x, out, b, h, w, c, s, dtype, true, nullptr, stream);
+}
+
+extern "C" int nt_d2s_packed_planar_launch(const void* x, const void* out, int b, int h, int w,
+                                           int c, int s, int dtype, int* rec, void* stream) {
+  return d2s(x, const_cast<void*>(out), b, h, w, c, s, dtype, true, rec, stream);
 }
 
 extern "C" const char* nt_error_string(int err) {

@@ -40,11 +40,23 @@
 //   store per thread and row; a warp writes whole contiguous pixels.
 //   The tile width is chosen so that cv x tw is about 128 threads (cv =
 //   16-byte vectors a pixel); SEGS such column groups stack down a tile.
-// * NT_DW_TILE, any other C (1..64) or alignment: one block per 16 x 32
-//   tile stages its haloed tile of every channel in shared memory (channels
+// * NT_DW_TILE, any other C or alignment: one block per 16 x 32 tile
+//   stages its haloed tile of every channel in shared memory (channels
 //   padded to the vector width with zeros; element loads where a pixel is
 //   not a multiple of 16 bytes), then each thread sums one channel vector
 //   of a 4-pixel column segment.
+//
+// Channel slices. Depthwise is separable by channel, so a layer wider than
+// MAX_C channels runs as `nslices` slices of `cs` <= MAX_C channels (cs a
+// multiple of the vector width; ops/conv_chain.py `dw_slices` is the same
+// rule), one launch a layer either way. On NT_DW_TMA the slice is the
+// fastest index of the tile walk and the grid a multiple of nslices, so a
+// persistent block keeps one slice (and its weights in registers) for its
+// whole walk; its box is the slice's channels (TMA starts it at channel
+// slice * cs and zero-fills channels past C). On NT_DW_TILE the slice is a
+// grid dimension. A layer of C <= MAX_C is one slice of C channels and
+// launches what it did before slices existed, on NT_DW_TMA the kernel
+// instance without the slice arithmetic (SLICED = false).
 
 #include <cuda_runtime.h>
 
@@ -105,27 +117,40 @@ constexpr int TMA_THREADS = ROW_THREADS * SEGS;
 constexpr int MAX_STAGES = 3;                 // boxes in flight: as many as fit
 
 struct DwParams {
-  int h, w, c, cv, tw, tiles_x, tiles_y, ntiles, relu, stage, nstages;
+  int h, w, c, cs, nslices, cv, tw, tiles_x, tiles_y, ntiles, relu, stage, nstages;
 };
+
+// Slices of a layer of c channels: the fewest of at most MAX_C channels,
+// each a multiple of vec channels (ops/conv_chain.py `dw_slices`).
+void slices_for(int c, int vec, int& nslices, int& cs) {
+  nslices = (c + MAX_C - 1) / MAX_C;
+  cs = ((c + nslices - 1) / nslices + vec - 1) / vec * vec;
+}
 
 int tile_w_for(int cv) { return std::max(8, ROW_THREADS / cv); }
 
+template <bool SLICED>
 __device__ __forceinline__ void decode_tile(const DwParams& p, int t, int& b, int& y0, int& x0) {
+  if (SLICED) t /= p.nslices;  // the slice is t % nslices
   const int tx = t % p.tiles_x, r = t / p.tiles_x;
   x0 = tx * p.tw;
   y0 = (r % p.tiles_y) * TILE_H;
   b = r / p.tiles_y;
 }
 
+template <bool SLICED>
 __device__ __forceinline__ void issue_tile(const CUtensorMap* m, unsigned char* smem,
                                            uint64_t* full, const DwParams& p, int t, int s) {
   int b, y0, x0;
-  decode_tile(p, t, b, y0, x0);
+  decode_tile<SLICED>(p, t, b, y0, x0);
   nt_mbar_expect_tx(&full[s], p.stage);
-  nt_tma_load_4d(smem + s * p.stage, m, &full[s], 0, x0 - 1, y0 - 1, b);
+  nt_tma_load_4d(smem + s * p.stage, m, &full[s], SLICED ? t % p.nslices * p.cs : 0, x0 - 1,
+                 y0 - 1, b);
 }
 
-template <typename T>
+// SLICED: more than one channel slice (a layer of C <= MAX_C compiles to
+// the kernel without slices).
+template <typename T, bool SLICED>
 __global__ void __launch_bounds__(TMA_THREADS, 1)
     dw3_tma_kernel(const __grid_constant__ CUtensorMap mx, const float* __restrict__ w,
                    const float* __restrict__ bias, T* __restrict__ out, const DwParams p) {
@@ -140,17 +165,19 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
     for (int s = 0; s < p.nstages; ++s) nt_mbar_init(&full[s], 1);
     nt_fence_mbar_init();
     for (int i = 0; i < p.nstages && i < mine; ++i)
-      issue_tile(&mx, smem, full, p, blockIdx.x + i * gridDim.x, i);
+      issue_tile<SLICED>(&mx, smem, full, p, blockIdx.x + i * gridDim.x, i);
   }
-  // This thread's channels: taps rounded to T, bias as it is.
-  const int ch = k * VEC;
+  // This thread's channels (the block's slice is blockIdx.x % nslices: the
+  // grid is a multiple of nslices): taps rounded to T, bias as it is.
+  const int ch = (SLICED ? (int)blockIdx.x % p.nslices * p.cs : 0) + k * VEC;
+  const bool ch_ok = !SLICED || ch < p.c;  // the last slice may run past C
   float wr[9][VEC], br[VEC];
 #pragma unroll
   for (int t = 0; t < 9; ++t)
 #pragma unroll
-    for (int q = 0; q < VEC; ++q) wr[t][q] = round_t<T>(__ldg(w + t * p.c + ch + q));
+    for (int q = 0; q < VEC; ++q) wr[t][q] = ch_ok ? round_t<T>(__ldg(w + t * p.c + ch + q)) : 0.f;
 #pragma unroll
-  for (int q = 0; q < VEC; ++q) br[q] = __ldg(bias + ch + q);
+  for (int q = 0; q < VEC; ++q) br[q] = ch_ok ? __ldg(bias + ch + q) : 0.f;
   __syncthreads();
 
   const int ps = p.cv * 16, rs = (p.tw + 2) * ps;  // bytes of a box pixel and a box row
@@ -158,9 +185,9 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
   for (int i = 0; i < mine; ++i) {
     const int s = i % p.nstages;
     int b, y0, x0;
-    decode_tile(p, blockIdx.x + i * gridDim.x, b, y0, x0);
+    decode_tile<SLICED>(p, blockIdx.x + i * gridDim.x, b, y0, x0);
     const int gx = x0 + col, gy = y0 + seg * ROWS;
-    const bool in_frame = gx < p.w;
+    const bool in_frame = gx < p.w && ch_ok;
     const int nrows = p.h - gy;  // rows of this thread's walk inside the frame (may be <= 0)
     T* dst = out + (((long long)b * p.h + gy) * p.w + gx) * p.c + ch;
     // Box row seg * ROWS + j holds input row gy - 1 + j; box column col + dx
@@ -209,7 +236,7 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
     }
     __syncthreads();  // every read of stage s is done
     if (tid == 0 && i + p.nstages < mine)
-      issue_tile(&mx, smem, full, p, blockIdx.x + (i + p.nstages) * gridDim.x, s);
+      issue_tile<SLICED>(&mx, smem, full, p, blockIdx.x + (i + p.nstages) * gridDim.x, s);
   }
 }
 
@@ -222,30 +249,31 @@ template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
     dw3_tile_kernel(const T* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ bias, T* __restrict__ out, int h, int wd, int c,
-                    int relu, int vec) {
+                    int cs, int nslices, int relu, int vec) {
   constexpr int VEC = Vec<T>::N, IH = TH + 2, IW = TW + 2;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int cv = (c + VEC - 1) / VEC;  // channel vectors per pixel
+  const int cv = (cs + VEC - 1) / VEC;  // channel vectors per pixel of the slice
   Vec<T>* sx = reinterpret_cast<Vec<T>*>(smem);                 // [IH][IW][cv]
   float* sw = reinterpret_cast<float*>(sx + IH * IW * cv);        // [9][cv*VEC]
   float* sb = sw + 9 * cv * VEC;                                  // [cv*VEC]
 
   const int tid = threadIdx.x;
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const long long img = (long long)blockIdx.z * h * wd;
+  const int c0 = (int)blockIdx.z % nslices * cs;  // the slice's first channel
+  const long long img = (long long)(blockIdx.z / nslices) * h * wd;
   const int cp = cv * VEC;
 
   for (int i = tid; i < 10 * cp; i += NTHREADS) {
-    const int ch = i % cp, t = i / cp;
-    const float v = ch < c ? (t < 9 ? round_t<T>(w[t * c + ch]) : bias[ch]) : 0.f;
+    const int ch = i % cp, t = i / cp, gc = c0 + ch;
+    const float v = gc < c ? (t < 9 ? round_t<T>(w[t * c + gc]) : bias[gc]) : 0.f;
     if (t < 9) sw[t * cp + ch] = v; else sb[ch] = v;
   }
   for (int i = tid; i < IH * IW * cv; i += NTHREADS) {
     const int k = i % cv, pix = i / cv, xx = pix % IW, yy = pix / IW;
-    const int gy = y0 + yy - 1, gx = x0 + xx - 1, gc = k * VEC;
+    const int gy = y0 + yy - 1, gx = x0 + xx - 1, gc = c0 + k * VEC;
     Vec<T> v;
     *reinterpret_cast<uint4*>(&v) = make_uint4(0, 0, 0, 0);
-    if (gy >= 0 && gy < h && gx >= 0 && gx < wd) {
+    if (gy >= 0 && gy < h && gx >= 0 && gx < wd && gc < c) {
       const T* src = x + (img + (long long)gy * wd + gx) * c + gc;
       if (vec) {
         v = *reinterpret_cast<const Vec<T>*>(src);
@@ -295,11 +323,13 @@ __global__ void __launch_bounds__(NTHREADS)
         if (relu) v = fmaxf(v, 0.f);
         o.v[q] = from_f<T>(v);
       }
-      T* dst = out + (img + (long long)gy * wd + gx) * c + k * VEC;
+      const int gc = c0 + k * VEC;
+      if (gc >= c) continue;
+      T* dst = out + (img + (long long)gy * wd + gx) * c + gc;
       if (vec) {
         *reinterpret_cast<Vec<T>*>(dst) = o;
       } else {
-        for (int q = 0; q < VEC && k * VEC + q < c; ++q) dst[q] = o.v[q];
+        for (int q = 0; q < VEC && gc + q < c; ++q) dst[q] = o.v[q];
       }
     }
   }
@@ -311,7 +341,7 @@ __global__ void __launch_bounds__(NTHREADS)
 struct DwLaunch {
   DwParams p;
   CUtensorMap m;
-  int grid, threads, smem, ntiles, tile_h, tile_w;
+  int grid, threads, smem, ntiles, tile_h, tile_w, nslices, cs;
   const void* fn;
 };
 
@@ -332,7 +362,8 @@ cudaError_t plan_tma(const void* x, const void* out, int b, int h, int wd, int c
   p.h = h;
   p.w = wd;
   p.c = c;
-  p.cv = c * es / 16;
+  slices_for(c, 16 / es, p.nslices, p.cs);
+  p.cv = p.cs * es / 16;
   p.tw = tile_w_for(p.cv);
   p.stage = (TILE_H + 2) * (p.tw + 2) * p.cv * 16;
   p.nstages = std::min(MAX_STAGES, (lim.smem - MAX_STAGES * 8) / p.stage);
@@ -340,37 +371,42 @@ cudaError_t plan_tma(const void* x, const void* out, int b, int h, int wd, int c
   p.relu = relu;
   p.tiles_x = (wd + p.tw - 1) / p.tw;
   p.tiles_y = (h + TILE_H - 1) / TILE_H;
-  const long long ntiles = (long long)b * p.tiles_x * p.tiles_y;
+  const long long ntiles = (long long)b * p.tiles_x * p.tiles_y * p.nslices;
   if (ntiles > INT32_MAX) return cudaErrorInvalidValue;
   p.ntiles = (int)ntiles;
+  l.nslices = p.nslices;
+  l.cs = p.cs;
   l.threads = p.cv * p.tw * SEGS;
   l.smem = p.nstages * p.stage + MAX_STAGES * 8;
   // Blocks an SM holds at this cv, once the kernel is configured.
-  static int per_sm[64][17] = {};
-  if (per_sm[dev][p.cv] == 0) {
-    err = cudaFuncSetAttribute(dw3_tma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               lim.smem);
+  const int sliced = p.nslices > 1;
+  l.fn = sliced ? reinterpret_cast<const void*>(dw3_tma_kernel<T, true>)
+                : reinterpret_cast<const void*>(dw3_tma_kernel<T, false>);
+  static int per_sm[64][2][17] = {};
+  int& fit = per_sm[dev][sliced][p.cv];
+  if (fit == 0) {
+    err = cudaFuncSetAttribute(l.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, lim.smem);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[dev][p.cv], dw3_tma_kernel<T>,
-                                                          l.threads, l.smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, l.fn, l.threads, l.smem);
     if (err != cudaSuccess) return err;
-    if (per_sm[dev][p.cv] < 1) return cudaErrorInvalidConfiguration;
+    if (fit < 1) return cudaErrorInvalidConfiguration;
   }
-  l.grid = (int)std::min<long long>(ntiles, (long long)lim.sms * per_sm[dev][p.cv]);
+  // A multiple of nslices (ntiles is one), so that a block keeps its slice.
+  l.grid = (int)std::min<long long>(ntiles, (long long)lim.sms * fit / p.nslices * p.nslices);
+  if (l.grid < 1) return cudaErrorInvalidConfiguration;
   l.ntiles = p.ntiles;
   l.tile_h = TILE_H;
   l.tile_w = p.tw;
-  l.fn = reinterpret_cast<const void*>(dw3_tma_kernel<T>);
 
   const NtEncodeTiled encode = nt_encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  // (C, W, H, B), innermost first; a box is a haloed tile of all channels.
+  // (C, W, H, B), innermost first; a box is a haloed tile of one slice's channels.
   const CUtensorMapDataType dt =
       es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)wd, (cuuint64_t)h, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)c * es, (cuuint64_t)wd * c * es,
                                  (cuuint64_t)h * wd * c * es};
-  const cuuint32_t box[4] = {(cuuint32_t)c, (cuuint32_t)p.tw + 2, TILE_H + 2, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)p.cs, (cuuint32_t)p.tw + 2, TILE_H + 2, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   if (encode(&l.m, dt, 4, const_cast<void*>(x), dims, strides, box, estr,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
@@ -382,12 +418,15 @@ cudaError_t plan_tma(const void* x, const void* out, int b, int h, int wd, int c
 template <typename T>
 cudaError_t plan_tile(int b, int h, int wd, int c, DwLaunch& l) {
   constexpr int VEC = Vec<T>::N;
-  const int cv = (c + VEC - 1) / VEC;
+  slices_for(c, VEC, l.nslices, l.cs);
+  const int cv = (l.cs + VEC - 1) / VEC;
   l.smem = (TH + 2) * (TW + 2) * cv * 16 + 10 * cv * VEC * (int)sizeof(float);
   l.threads = NTHREADS;
   l.tile_h = TH;
   l.tile_w = TW;
-  const long long tiles = (long long)((wd + TW - 1) / TW) * ((h + TH - 1) / TH) * b;
+  const long long tiles =
+      (long long)((wd + TW - 1) / TW) * ((h + TH - 1) / TH) * b * l.nslices;
+  if ((long long)b * l.nslices > 65535) return cudaErrorInvalidValue;
   if (tiles > INT32_MAX) return cudaErrorInvalidValue;
   l.ntiles = l.grid = (int)tiles;
   l.fn = reinterpret_cast<const void*>(dw3_tile_kernel<T>);
@@ -405,27 +444,32 @@ cudaError_t run(const void* x, const float* w, const float* bias, void* out, int
   if (rec != nullptr) {
     cudaFuncAttributes a;
     if ((err = cudaFuncGetAttributes(&a, l.fn)) != cudaSuccess) return err;
-    const int r[9] = {l.grid, l.threads, l.smem, (int)a.sharedSizeBytes, a.numRegs,
-                      (int)a.localSizeBytes, l.ntiles, l.tile_h, l.tile_w};
-    for (int i = 0; i < 9; ++i) rec[i] = r[i];
+    const int r[11] = {l.grid, l.threads, l.smem, (int)a.sharedSizeBytes, a.numRegs,
+                       (int)a.localSizeBytes, l.ntiles, l.tile_h, l.tile_w, l.nslices, l.cs};
+    for (int i = 0; i < 11; ++i) rec[i] = r[i];
     return cudaSuccess;
   }
   if (route == NT_DW_TMA) {
-    dw3_tma_kernel<T><<<l.grid, l.threads, l.smem, stream>>>(l.m, w, bias, static_cast<T*>(out),
-                                                             l.p);
+    if (l.p.nslices > 1)
+      dw3_tma_kernel<T, true><<<l.grid, l.threads, l.smem, stream>>>(l.m, w, bias,
+                                                                      static_cast<T*>(out), l.p);
+    else
+      dw3_tma_kernel<T, false><<<l.grid, l.threads, l.smem, stream>>>(l.m, w, bias,
+                                                                       static_cast<T*>(out), l.p);
   } else {
     const int vec = c % Vec<T>::N == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
-    const dim3 grid((wd + TW - 1) / TW, (h + TH - 1) / TH, b);
+    const dim3 grid((wd + TW - 1) / TW, (h + TH - 1) / TH, b * l.nslices);
     dw3_tile_kernel<T><<<grid, NTHREADS, l.smem, stream>>>(
-        static_cast<const T*>(x), w, bias, static_cast<T*>(out), h, wd, c, relu, vec);
+        static_cast<const T*>(x), w, bias, static_cast<T*>(out), h, wd, c, l.cs, l.nslices, relu,
+        vec);
   }
   return cudaGetLastError();
 }
 
 int checked(const void* x, const float* w, const float* bias, void* out, int c, int b, int h,
             int w_, int relu, int route, int dtype, int* rec, void* stream) {
-  if (c < 1 || c > MAX_C || b < 1 || h < 1 || w_ < 1 ||
+  if (c < 1 || b < 1 || h < 1 || w_ < 1 ||
       (route != NT_DW_TMA && route != NT_DW_TILE))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

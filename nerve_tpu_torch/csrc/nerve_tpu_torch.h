@@ -68,18 +68,19 @@ int nt_conv2d(const void* x0, const void* x1, const void* x2, int nx,
 // One SAME depthwise 3x3 layer: out[..., c] = sum over the 9 taps of
 // x[y+dy-1, x+dx-1, c] * w[dy, dx, c] (w rounded to the dtype here),
 // rounded to the dtype, + bias[c], relu if asked, rounded to the dtype. x
-// and out (B, H, W, c), c <= 64; w (3, 3, c) and bias (c) float32. route
-// NT_DW_TMA takes c * element size a multiple of 16 and x, out 16-byte
-// aligned; NT_DW_TILE any c and alignment (ops/conv_chain.py
+// and out (B, H, W, c), any c (wider than 64 in channel slices of at most
+// 64, ops/conv_chain.py `dw_slices`); w (3, 3, c) and bias (c) float32.
+// route NT_DW_TMA takes c * element size a multiple of 16 and x, out
+// 16-byte aligned; NT_DW_TILE any c and alignment (ops/conv_chain.py
 // `dwconv3_route`).
 int nt_dwconv3(const void* x, const float* w, const float* bias, void* out,
                int c, int b, int h, int w_, int relu, int route, int dtype,
                void* stream);
 
 // The launch nt_dwconv3 makes for these arguments, without launching:
-// rec[0..8] = grid, threads, dynamic shared bytes, static shared bytes,
+// rec[0..10] = grid, threads, dynamic shared bytes, static shared bytes,
 // registers a thread, local (spill) bytes a thread, tiles, tile height,
-// tile width. stream unused.
+// tile width, channel slices, channels a slice. stream unused.
 int nt_dwconv3_launch(const void* x, const void* out, int c, int b, int h,
                       int w_, int route, int dtype, int* rec, void* stream);
 
@@ -99,8 +100,12 @@ int nt_planar_chain(const void* x, void* out, const void* wpack,
 
 // One SAME 3x3 dense layer under a grouped-tap rounding contract. Reads
 // channels [0, cin) of x (channel stride x_cstride), writes channels
-// [out_coff, out_coff + cout) of out; w is HWIO (3, 3, cin, cout), bias
-// (cout), both at the activation dtype's values. `table` is a host array of
+// [out_coff, out_coff + cout) of out; bias (cout) float32 at the activation
+// dtype's values. NT_F32: w float32 HWIO (3, 3, cin, cout). NT_BF16: w the
+// bf16 image of ops/conv_chain.py `pack_conv_weights` at the N tile of
+// ops/rdb_taps.py `n_tile` (16-byte aligned), x_cstride a multiple of 8 and
+// x 16-byte aligned, and the table's groups one of the kernel's families
+// (`pallas_dy`, `pallas_dx`, `f32_taps`, `s2d`). `table` is a host array of
 // 20 ints: for output-row parity p (the row's index in the image mod 2),
 // table[9p .. 9p+8] the taps t = 3*dy + dx in walk order and table[18 + p]
 // a bit mask, bit i set where a group ends after the i-th tap. Each group's
@@ -109,10 +114,18 @@ int nt_planar_chain(const void* x, void* out, const void* wpack,
 // NT_TAPS_ACC_DTYPE); then relu, rounded to the dtype. NT_TAPS_NOSHIFT
 // writes relu of tap 4's group alone; NT_TAPS_MATONLY computes the products
 // and writes one value per warp (timing only).
-int nt_rdb_taps_conv(const void* x, int x_cstride, int cin, const float* w,
+int nt_rdb_taps_conv(const void* x, int x_cstride, int cin, const void* w,
                      const float* bias, void* out, int out_cstride,
                      int out_coff, int cout, int b, int h, int w_,
                      const int* table, int flags, int dtype, void* stream);
+
+// The launch nt_rdb_taps_conv makes in bf16 for these arguments, without
+// launching: rec[0..10] = grid, threads, dynamic shared bytes, static
+// shared bytes, registers a thread, local (spill) bytes a thread, tiles, N
+// tile, stages a ring, weights resident (1) or streamed (0), accumulator
+// sets. stream unused.
+int nt_rdb_taps_launch(const void* x, int x_cstride, int cin, int cout, int b,
+                       int h, int w_, const int* table, int* rec, void* stream);
 
 // o = 2 * a over n float32 values (the device-health probe).
 int nt_probe_scale2(const float* a, float* o, int n, void* stream);
@@ -189,7 +202,7 @@ const char* nt_error_string(int err);
 
 // Tensor-core building blocks (sm_80+): ldmatrix of four 8x8 b16 matrices
 // (8 rows of 16 bytes each) from shared memory and one bf16 m16n8k16 product
-// accumulated in float32 (planar_chain.cu, rdb_taps.cu).
+// accumulated in float32 (planar_chain.cu).
 __device__ __forceinline__ unsigned nt_smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }

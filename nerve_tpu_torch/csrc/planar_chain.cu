@@ -61,10 +61,30 @@
 //     registers for chains up to 32 channels. (Nine per-channel FMAs on the
 //     CUDA cores cost a shared-memory word and two integer unpacks per two
 //     FMAs; the tensor cores take the whole tap from one ldmatrix.) On
-//     finite values the sums are the reference's; the diagonal blocks add
-//     0 * x for a pixel's 15 other channels of the chunk, so an Inf or NaN
-//     in one channel of a pixel makes that pixel's whole 16-channel chunk
-//     NaN, where the reference keeps it to its own channel.
+//     finite values the sums are the reference's. The diagonal blocks add
+//     0 * x for a pixel's 15 other channels of the chunk, so a chunk whose
+//     input holds an Inf or NaN gets NaN sums in channels the reference
+//     keeps finite. A block therefore checks each tile's input box once
+//     (exponent bits, an OR over the block at the barrier that follows): a
+//     tile whose input is all finite runs the tensor-core stages as they
+//     were, bit for bit; in any other, each depthwise stage runs checked
+//     (dw_stage_checked, out of line): a warp votes on its chunk's sums,
+//     one channel a pixel (every channel of a pixel whose taps meet an Inf
+//     or NaN is Inf or NaN), and a chunk that is not all finite is summed
+//     again as per-channel FMAs in the reference's tap order (dw_fma),
+//     which keep a non-finite value to its own channel. (A vote and branch
+//     in every chunk made the lightweight body's kernel 2.01 ms against
+//     1.64 without them on an H100, presumably as the chunks' products and
+//     finishes no longer interleave; a per-thread flag in every chunk with
+//     a checked re-run of the stage still cost 1.5 %.)
+//   * relu keeps NaN (cvt's relu in the epilogue; fmaxf would turn NaN into
+//     0), as the reference's does. What still differs: an Inf or NaN that a
+//     finite input makes inside the chain (an overflow) is not checked for;
+//     whether a non-finite value is Inf or NaN, and its sign, is not held;
+//     and a layer whose width is not a multiple of 16 carries 0 * Inf = NaN
+//     in its padded channels into the next layer, where the reference's
+//     relu may have turned -Inf into 0 (the per-tile kernel below stores
+//     padded channels as zeros).
 //   * Dense layers run mma.sync.m16n8k16 per tap and 16-channel chunk.
 //   * The last stage writes its tile into a planar [Cout][TH][TW] staging
 //     area, stored by one TMA store whose tensor map clips the ragged edge;
@@ -145,11 +165,18 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
 
+// relu that keeps NaN, as the reference's does (fmaxf returns 0 for NaN).
+__device__ __forceinline__ float relu_nan(float v) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;\n" : "=f"(r) : "f"(v));
+  return r;
+}
+
 // The reference's epilogue: round the sum, add the bias, activation, round.
 template <typename T>
 __device__ __forceinline__ T finish(float acc, float bias, int relu) {
   float v = __fadd_rn(to_f(from_f<T>(acc)), bias);
-  if (relu) v = fmaxf(v, 0.f);
+  if (relu) v = relu_nan(v);
   return from_f<T>(v);
 }
 
@@ -171,8 +198,8 @@ struct TileSink {
   __device__ __forceinline__ void put(int p, int n, T v) const {
     int gy, gx;
     const bool inside = in_image(p, gy, gx);
-    if (dst) {
-      dst[(long long)p * stride + n] = inside ? v : from_f<T>(0.f);
+    if (dst) {  // zero outside the image and in the padded channels
+      dst[(long long)p * stride + n] = inside && n < cout ? v : from_f<T>(0.f);
     } else if (inside && n < cout && gx >= x0 && gx < x0 + tw) {
       out[((long long)n * h + gy) * ws + gx] = v;
     }
@@ -314,8 +341,8 @@ __global__ void __launch_bounds__(F_THREADS, 1)
     const int s_in = row_stride(L.cin), s_out = row_stride(L.cout);
     const T* src = bufs[li % 2] + SLACK_F * s_in;
     const TileSink<T> sink{last ? nullptr : bufs[(li + 1) % 2] + SLACK_F * s_out, s_out,
-                           out + (long long)b * cout * h * ws, cout, h, wd, ws, rw, halo, th, tw,
-                           y0, x0};
+                           out + (long long)b * cout * h * ws, L.cout, h, wd, ws, rw, halo, th,
+                           tw, y0, x0};
     const int p_begin = hl * rw, p_end = (rh - hl) * rw;
     const T* sw = reinterpret_cast<const T*>(wsm);
     if (L.kind == KDW3) {
@@ -423,14 +450,14 @@ __device__ __forceinline__ float lo_f(unsigned v) { return __uint_as_float(v << 
 __device__ __forceinline__ float hi_f(unsigned v) { return __uint_as_float(v & 0xffff0000u); }
 // The reference's epilogue on two channels' sums: round each to bf16, add
 // the float32 bias, activation, round; returned as a bf16 pair (lo first).
+// relu is cvt's: a negative result becomes 0, NaN stays NaN (canonical).
 __device__ __forceinline__ unsigned finish2(float a0, float a1, const float (&bias)[2], int relu) {
   const unsigned r = round2(a0, a1);
-  float v0 = __fadd_rn(lo_f(r), bias[0]), v1 = __fadd_rn(hi_f(r), bias[1]);
-  if (relu) {
-    v0 = fmaxf(v0, 0.f);
-    v1 = fmaxf(v1, 0.f);
-  }
-  return round2(v0, v1);
+  const float v0 = __fadd_rn(lo_f(r), bias[0]), v1 = __fadd_rn(hi_f(r), bias[1]);
+  if (!relu) return round2(v0, v1);
+  unsigned d;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(v1), "f"(v0));
+  return d;
 }
 
 // A pixel of an m-tile, as the stage's sink needs it.
@@ -612,13 +639,55 @@ __device__ __forceinline__ void dw_b(const float* wd, int c16, int q, int tap, u
   u1 = round2(2 * t == g ? w1 : z, 2 * t + 1 == g ? w1 : z);
 }
 
+// Whether a thread's two pixels' sums of a chunk are finite. The diagonal
+// blocks add 0 * x for every channel of the chunk, so an Inf or NaN
+// anywhere in a pixel's taps makes each of its channels' sums Inf or NaN:
+// one channel a pixel tells (s - s is 0 for finite s, NaN otherwise; the
+// _rn intrinsics keep the compiler from folding it).
+__device__ __forceinline__ bool finite2(float a, float b) {
+  const float s = __fadd_rn(a, b);
+  return __fsub_rn(s, s) == 0.f;
+}
+
+// Chunk q's depthwise sums of an m-tile as per-channel FMAs (the reference's
+// contract: from 0, taps dy outer, dx inner, weights rounded to bf16), in
+// the accumulator layout of the tensor-core products: d[hf][2 r + e] is
+// pixel g + 8 r, channel 16 q + 8 hf + 2 t + e (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void dw_fma(int rw, const bf16* src, int s_in, int p0, int q,
+                                       const float* wd, int c16, float (&d)[2][4]) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d[i][j] = 0.f;
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const int off = (tap / 3 - 1) * rw + (tap % 3 - 1);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int ch = 16 * q + 8 * hf + 2 * t;
+      const float w0 = __bfloat162float(__float2bfloat16_rn(wd[tap * c16 + ch]));
+      const float w1 = __bfloat162float(__float2bfloat16_rn(wd[tap * c16 + ch + 1]));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const unsigned v =
+            *reinterpret_cast<const unsigned*>(src + (p0 + off + g + 8 * r) * s_in + ch);
+        d[hf][2 * r] = fmaf(lo_f(v), w0, d[hf][2 * r]);
+        d[hf][2 * r + 1] = fmaf(hi_f(v), w1, d[hf][2 * r + 1]);
+      }
+    }
+  }
+}
+
 // A depthwise layer of KC 16-channel chunks, alone or (PAIR) with the 1x1
 // layer after it (NT n8 tiles of output channels). The depthwise layer runs
 // on the tensor cores as nine products per chunk with its block-diagonal
 // weights (dw_b): its sums come out in the accumulator layout, which is the
 // 1x1 product's A fragment layout, so they are finished (rounded, bias,
-// activation, rounded) in registers and fed to the 1x1 at once.
-template <int KC, int NT, bool PAIR>
+// activation, rounded) in registers and fed to the 1x1 at once. CHECKED
+// (a tile whose input holds an Inf or NaN), each chunk whose sums are not
+// all finite is summed again per channel (dw_fma) before it is finished.
+template <int KC, int NT, bool PAIR, bool CHECKED>
 __device__ void stage_dw(const Geo& G, const Stage& S, const bf16* src,
                          const unsigned char* wsm, const Sink& sink, const Walk& wk) {
   constexpr bool REG_W = KC <= 2, REG_B = PAIR && KC * NT <= 8;
@@ -664,6 +733,11 @@ __device__ void stage_dw(const Geo& G, const Stage& S, const bf16* src,
         nt_mma_bf16(d[0], a, u0, 0u);
         nt_mma_bf16(d[1], a, 0u, u1);
       }
+      // An Inf or NaN in the chunk's input spread across its channels.
+      if constexpr (CHECKED) {
+        if (__any_sync(0xffffffffu, !finite2(d[0][0], d[0][2])))
+          dw_fma(G.rw, src, s_in, p0, q, wd, KC * 16, d);
+      }
       // The A fragment: (pixel g, channels 2t, 2t+1), (g + 8, same), (g, + 8), (g + 8, + 8).
       const unsigned a[4] = {finish2(d[0][0], d[0][1], bdw[2 * q], S.dw_relu),
                              finish2(d[0][2], d[0][3], bdw[2 * q], S.dw_relu),
@@ -693,19 +767,45 @@ __device__ void stage_dw(const Geo& G, const Stage& S, const bf16* src,
   }
 }
 
-template <int KC>
+template <int KC, bool CHECKED>
 __device__ void stage_pair(int nt, const Geo& G, const Stage& S, const bf16* src,
                            const unsigned char* wsm, const Sink& sink, const Walk& wk) {
   switch (nt) {
-    case 2: stage_dw<KC, 2, true>(G, S, src, wsm, sink, wk); break;
-    case 4: stage_dw<KC, 4, true>(G, S, src, wsm, sink, wk); break;
-    case 6: stage_dw<KC, 6, true>(G, S, src, wsm, sink, wk); break;
-    default: stage_dw<KC, 8, true>(G, S, src, wsm, sink, wk); break;
+    case 2: stage_dw<KC, 2, true, CHECKED>(G, S, src, wsm, sink, wk); break;
+    case 4: stage_dw<KC, 4, true, CHECKED>(G, S, src, wsm, sink, wk); break;
+    case 6: stage_dw<KC, 6, true, CHECKED>(G, S, src, wsm, sink, wk); break;
+    default: stage_dw<KC, 8, true, CHECKED>(G, S, src, wsm, sink, wk); break;
   }
 }
 
+// A depthwise stage (alone or paired), checked: run only in a tile whose
+// input holds an Inf or NaN, out of line so that its code stays out of the
+// unchecked stages' (its arguments by value, so that the caller's take no
+// address).
+__device__ __noinline__ void dw_stage_checked(int nt, int kc, const Geo G, const Stage S,
+                                              const bf16* src, const unsigned char* wsm,
+                                              const Sink sink, const Walk wk) {
+  if (S.kind == ST_DW) {
+    switch (kc) {
+      case 1: stage_dw<1, 2, false, true>(G, S, src, wsm, sink, wk); break;
+      case 2: stage_dw<2, 2, false, true>(G, S, src, wsm, sink, wk); break;
+      case 3: stage_dw<3, 2, false, true>(G, S, src, wsm, sink, wk); break;
+      default: stage_dw<4, 2, false, true>(G, S, src, wsm, sink, wk); break;
+    }
+    return;
+  }
+  switch (kc) {
+    case 1: stage_pair<1, true>(nt, G, S, src, wsm, sink, wk); break;
+    case 2: stage_pair<2, true>(nt, G, S, src, wsm, sink, wk); break;
+    case 3: stage_pair<3, true>(nt, G, S, src, wsm, sink, wk); break;
+    default: stage_pair<4, true>(nt, G, S, src, wsm, sink, wk); break;
+  }
+}
+
+// One stage, its depthwise layer checked or not.
 __device__ void run_stage(const Geo& G, const Stage& S, const bf16* src,
-                          const unsigned char* wsm, const Sink& sink, const Walk& wk) {
+                          const unsigned char* wsm, const Sink& sink, const Walk& wk,
+                          bool checked) {
   const int nt = ceil16(S.cout) / 8, kc = ceil16(S.cin) / 16;
   switch (S.kind) {
     case ST_HEAD:
@@ -725,19 +825,27 @@ __device__ void run_stage(const Geo& G, const Stage& S, const bf16* src,
       }
       break;
     case ST_DW:
+      if (checked) {
+        dw_stage_checked(nt, kc, G, S, src, wsm, sink, wk);
+        break;
+      }
       switch (kc) {
-        case 1: stage_dw<1, 2, false>(G, S, src, wsm, sink, wk); break;
-        case 2: stage_dw<2, 2, false>(G, S, src, wsm, sink, wk); break;
-        case 3: stage_dw<3, 2, false>(G, S, src, wsm, sink, wk); break;
-        default: stage_dw<4, 2, false>(G, S, src, wsm, sink, wk); break;
+        case 1: stage_dw<1, 2, false, false>(G, S, src, wsm, sink, wk); break;
+        case 2: stage_dw<2, 2, false, false>(G, S, src, wsm, sink, wk); break;
+        case 3: stage_dw<3, 2, false, false>(G, S, src, wsm, sink, wk); break;
+        default: stage_dw<4, 2, false, false>(G, S, src, wsm, sink, wk); break;
       }
       break;
     default:
+      if (checked) {
+        dw_stage_checked(nt, kc, G, S, src, wsm, sink, wk);
+        break;
+      }
       switch (kc) {
-        case 1: stage_pair<1>(nt, G, S, src, wsm, sink, wk); break;
-        case 2: stage_pair<2>(nt, G, S, src, wsm, sink, wk); break;
-        case 3: stage_pair<3>(nt, G, S, src, wsm, sink, wk); break;
-        default: stage_pair<4>(nt, G, S, src, wsm, sink, wk); break;
+        case 1: stage_pair<1, false>(nt, G, S, src, wsm, sink, wk); break;
+        case 2: stage_pair<2, false>(nt, G, S, src, wsm, sink, wk); break;
+        case 3: stage_pair<3, false>(nt, G, S, src, wsm, sink, wk); break;
+        default: stage_pair<4, false>(nt, G, S, src, wsm, sink, wk); break;
       }
       break;
   }
@@ -802,6 +910,14 @@ __global__ void __launch_bounds__(BT, 1)
     if (tid == 0 && t + (int)gridDim.x < P.ntiles)
       load_box(P, &xmap, smem, bars, t + gridDim.x, s ^ 1);
     nt_mbar_wait(&bars[s], (it >> 1) & 1);
+    // Whether the tile's input box holds an Inf or NaN (exponent bits all
+    // ones in a bf16 half: adding 0x80 to them carries into its sign bit);
+    // its depthwise stages then run checked.
+    unsigned ones = 0;
+    for (int i = tid; i < P.c0 * P.rh * P.rwp / 2; i += BT)
+      ones |= ((reinterpret_cast<const unsigned*>(stg)[i] & 0x7f807f80u) + 0x00800080u) &
+              0x80008000u;
+    const bool nonfinite = __syncthreads_or(ones != 0);
     if (P.transpose) {
       // The input box [c0][rh][rwp] as pixel rows of buffer 1, channels padded with zeros.
       const int cp = ceil16(P.c0) / 2;
@@ -822,12 +938,12 @@ __global__ void __launch_bounds__(BT, 1)
       __syncthreads();
       const bf16* src = si > 0 ? buffer(P, smem, (si - 1) & 1)
                                : P.transpose ? buffer(P, smem, 1) : stg;
-      const Sink sink{last ? nullptr : buffer(P, smem, si & 1), P.smax, ostg, P.cout,
+      const Sink sink{last ? nullptr : buffer(P, smem, si & 1), P.smax, ostg, S.cout,
                       P.th * P.tw};
       const Walk wk = last ? Walk{0, 0, P.th * (P.tw / 16), 1, y0, x0}
                            : Walk{S.h * P.rw, (P.rh - S.h) * P.rw,
                                   ((P.rh - 2 * S.h) * P.rw + 15) / 16, 0, y0, x0};
-      run_stage(G, S, src, smem, sink, wk);
+      run_stage(G, S, src, smem, sink, wk, nonfinite);
     }
     nt_fence_proxy_async();
     __syncthreads();

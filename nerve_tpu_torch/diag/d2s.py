@@ -8,11 +8,14 @@ script's ``d2s_packed_mxu``) and from channel-planar phases with
 ``ops.depth_to_space_packed_planar`` (``nt_d2s_packed_planar``, the
 script's ``d2s_packed_planar``), beside the library's
 ``F.pixel_shuffle`` + permute for each layout. The kernels are held
-bit-exact against their plain versions first. On the card it also prints
-``nt_d2s_packed``'s launch record (grid, threads, shared memory, registers
-and spills, segments, stages, bulk copies or element loads) and ptxas's
-usage of the d2s kernels from the build log, and with ``--profile DIR``
-each kernel's device time and launches per call under ``torch.profiler``.
+bit-exact against their plain versions first (the planar one also at odd
+widths with s = 3 and 4). On the card it also prints both kernels' launch
+records (grid, threads, shared memory, registers and spills, segments,
+pixels a segment, stages, bulk copies or element loads, fixed gather
+offsets; ``ops.pixel_shuffle.launch_record`` and ``planar_launch_record``,
+where the package has them) and ptxas's usage of the d2s kernels from the
+build log, and with ``--profile DIR`` each kernel's device time and
+launches per call under ``torch.profiler``.
 It measures the ``nerve_tpu_torch`` that is first on the path and prints
 its location first; the last line is one JSON object.
 """
@@ -75,8 +78,15 @@ def main(argv=None) -> dict:
             # A kernel against its plain version, a library call against the NHWC one.
             if not torch.equal(fn(), plain() if plain else ref):
                 raise AssertionError(f"{name} ({dt}) is not bit-exact")
-    print("check d2s: both kernels bit-exact against their plain versions, the library "
-          "calls against the NHWC plain version (float32, bf16)", flush=True)
+        for shape, s in (((1, 27, 9, 41), 3), ((2, 32, 7, 33), 4)):
+            xp = torch.rand(shape, generator=g).to(dev, dt)
+            if not torch.equal(ops.depth_to_space_packed_planar(xp, s),
+                               ps.depth_to_space_packed_planar_plain(xp, s)):
+                raise AssertionError(f"the planar d2s at {shape}, s = {s} ({dt}) is not "
+                                     "bit-exact")
+    print("check d2s: both kernels bit-exact against their plain versions (the planar one "
+          "also at odd widths, s = 3, 4), the library calls against the NHWC plain version "
+          "(float32, bf16)", flush=True)
     h, w = (16, 40) if args.small else (1080, 1920)
     x = torch.rand((1, h, w, 12), generator=g).to(dev, torch.bfloat16)
     calls = cases(x)
@@ -89,6 +99,11 @@ def main(argv=None) -> dict:
         if hasattr(ps, "launch_record"):
             result["launch"] = ps.launch_record(x, S)
             print(f"launch d2s_packed: {json.dumps(result['launch'])}", flush=True)
+        if hasattr(ps, "planar_launch_record"):
+            result["launch_planar"] = ps.planar_launch_record(
+                x.permute(0, 3, 1, 2).contiguous(), S)
+            print(f"launch d2s_packed_planar: {json.dumps(result['launch_planar'])}",
+                  flush=True)
         result["ptxas"] = _common.ptxas_usage("d2s")
         for line in result["ptxas"]:
             print(f"ptxas {line}", flush=True)
@@ -99,7 +114,7 @@ def main(argv=None) -> dict:
             name: _common.profile_calls(calls[name][0], Path(args.profile), label, (word,))
             for name, label, word in (
                 ("depth_to_space_packed (NHWC)", "d2s_packed", "d2s_packed_kernel"),
-                ("depth_to_space_packed_planar", "d2s_packed_planar", "d2s_planar_kernel"))}
+                ("depth_to_space_packed_planar", "d2s_packed_planar", "d2s_"))}
     print(json.dumps(result))
     return times
 

@@ -1,5 +1,5 @@
 """Cost attribution of one residual dense block:
-``python -m nerve_tpu_torch.diag.rdb [--device cpu] [--small]``.
+``python -m nerve_tpu_torch.diag.rdb [--profile DIR] [--device cpu] [--small]``.
 
 Counterpart of ``scripts/diag_rdb.py``. One block at 1080p × 64 features in
 bfloat16 (seeded weights and non-zero biases) runs through
@@ -20,12 +20,26 @@ nolff, the tap adds = pallas_dx − noshift, bias, group rounding, relu and
 the layers' stores = noshift − matonly, the products with the group folds
 and the fusion = matonly. Nine groups against one = pallas_dx − f32_taps
 (a different walk: the one comparison that does not share it).
+
+On the card it also prints the bf16 layer's launch record for each
+contract at the block's widest layer (grid, threads, shared memory,
+registers and spills, tiles, N tile, stages, resident weights, accumulator
+sets; ``ops.rdb_taps.launch_record``, where the package has one) and
+ptxas's usage of the tap kernels from the build log; with ``--profile
+DIR`` each case's device time per block and launches per call of the tap
+kernels under ``torch.profiler`` (five dense layers and one fusion a
+block). It measures the ``nerve_tpu_torch`` that is first on the path and
+prints its location first; the last line is one JSON object.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
+
 import torch
 
+import nerve_tpu_torch
 from nerve_tpu_torch import ops
 from nerve_tpu_torch.diag import _common
 from nerve_tpu_torch.ops import rdb_taps
@@ -74,15 +88,44 @@ def report(rows, label: str) -> dict:
     return ms
 
 
+def launch_records(x: torch.Tensor, params) -> dict:
+    """{contract: the bf16 launch record of the block's widest dense layer}."""
+    w = params[-4]  # the last dense layer's weight (3, 3, cin, G)
+    return {mode: rdb_taps.launch_record(x, w.shape[2], w.shape[3], mode)
+            for mode in rdb_taps.CONTRACTS}
+
+
 def main(argv=None) -> dict:
     p = _common.parser(__doc__.splitlines()[0])
+    p.add_argument("--profile", metavar="DIR",
+                   help="also trace each case's calls, writing the traces into DIR")
     args = p.parse_args(argv)
     dev = _common.device_of(args)
+    print(f"package {nerve_tpu_torch.__file__}", flush=True)
     g = torch.Generator().manual_seed(0)
     c, h, w = (16, 10, 21) if args.small else (64, 1080, 1920)
     params = _common.rdb_params(g, c, dev, torch.bfloat16)
     x = torch.randn((1, h, w, c), generator=g).to(dev, torch.bfloat16)
-    return report(attribution(x, params, args.reps), f"one block, {h}x{w}x{c} bf16")
+    label = f"one block, {h}x{w}x{c} bf16"
+    result = {"ms": report(attribution(x, params, args.reps), label)}
+    if dev.type == "cuda":
+        if hasattr(rdb_taps, "launch_record"):
+            result["launch"] = launch_records(x, params)
+            for mode, rec in result["launch"].items():
+                print(f"launch rdb_taps {mode} (cin {params[-4].shape[2]}): {json.dumps(rec)}",
+                      flush=True)
+        result["ptxas"] = _common.ptxas_usage("taps_")
+        for line in result["ptxas"]:
+            print(f"ptxas {line}", flush=True)
+    if args.profile:
+        if dev.type != "cuda":
+            raise SystemExit("--profile traces the card: run it with --device cuda")
+        modes = (*rdb_taps.CONTRACTS, "noshift", "nolff", "matonly")
+        result["profile"] = {mode: _common.profile_calls(
+            lambda mode=mode: ops.rdb_taps_apply(x, params, mode), Path(args.profile),
+            f"rdb_taps_{mode}", ("taps_",)) for mode in modes}
+    print(json.dumps(result))
+    return result["ms"]
 
 
 if __name__ == "__main__":

@@ -41,7 +41,9 @@ SIGNATURES = {
     "nt_d2s_packed": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "nt_d2s_packed_launch": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P)),
     "nt_d2s_packed_planar": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "nt_d2s_packed_planar_launch": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P)),
     "nt_rdb_taps_conv": (_I, (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P)),
+    "nt_rdb_taps_launch": (_I, (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P)),
     "nt_probe_scale2": (_I, (_P, _P, _I, _P)),
     "nt_correlation": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "nt_correlation_launch": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P)),

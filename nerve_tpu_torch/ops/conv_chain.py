@@ -20,7 +20,9 @@ and rounds them itself, so a depthwise layer is one launch and one
 ``torch.empty``. It has two routes, chosen by shape (``dwconv3_route``):
 ``"tma"`` (persistent blocks fed by TMA boxes) where a pixel is a multiple
 of 16 bytes and both tensors are 16-byte aligned, ``"tile"`` (one block per
-staged tile) for any other C or alignment.
+staged tile) for any other C or alignment. Either route takes any C: a
+layer wider than 64 channels runs as channel slices of at most 64 inside
+its one launch (``dw_slices``).
 
 The bfloat16 dense layer takes its weights as the image of
 ``pack_conv_weights`` (packed here once per call) and its input through TMA
@@ -44,10 +46,10 @@ import torch.nn.functional as F
 from nerve_tpu_torch.ops import _build, dispatch
 
 Entry = Tuple[torch.Tensor, torch.Tensor, str]
-MAX_DW_CHANNELS = 64  # csrc/dwconv3.cu stages every channel of its tile
+MAX_DW_SLICE = 64  # channels of one slice of csrc/dwconv3.cu (its MAX_C)
 DW_ROUTES = {"tma": 0, "tile": 1}  # csrc/nerve_tpu_torch.h NT_DW_TMA, NT_DW_TILE
 DW_LAUNCH_RECORD = ("grid", "threads", "dynamic_smem_bytes", "static_smem_bytes", "registers",
-                    "spill_bytes", "tiles", "tile_h", "tile_w")
+                    "spill_bytes", "tiles", "tile_h", "tile_w", "slices", "slice_channels")
 N_TILES = (8, 16, 32, 64, 128)  # the bf16 kernel's output-channel tiles (wgmma N)
 CHUNK = 16  # input channels per K step of the bf16 kernel
 MAX_PARTS = 3  # input tensors the bf16 kernel reads in place
@@ -80,19 +82,43 @@ def _concat(x) -> torch.Tensor:
     return x
 
 
+def depthwise_sums(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A depthwise 3×3 layer's float32 sums on NCHW ``h`` with (3, 3, C)
+    weights ``w`` (at ``h``'s dtype): from 0, taps dy outer, dx inner, SAME
+    zero padding. A product of two bfloat16 values is exact in float32, so
+    in bfloat16 each add is the ``fmaf`` of the reference's contract. The
+    CPU's plain path takes it rather than ``F.conv2d(groups=C)``, whose
+    bfloat16 form spreads an Inf into pixels outside its taps' reach."""
+    _b, _c, hh, ww = h.shape
+    xp = F.pad(h.float(), (1, 1, 1, 1))
+    wf = w.float()
+    acc = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    for dy in range(3):
+        for dx in range(3):
+            acc = acc + xp[:, :, dy:dy + hh, dx:dx + ww] * wf[dy, dx][:, None, None]
+    return acc
+
+
 def conv_chain_plain(x, params: Sequence[Entry]) -> torch.Tensor:
-    """Plain version: ``F.conv2d`` per layer on NCHW views, reference rounding."""
+    """Plain version: ``F.conv2d`` per layer on NCHW views, reference
+    rounding. On the CPU, whose bfloat16 convolutions spread an Inf beyond
+    their taps' reach, the same products are summed in float32 instead: the
+    dense layers by ``F.conv2d`` on the values rounded to the dtype, the
+    depthwise ones by ``depthwise_sums``."""
     x = _concat(x)
     _layer_specs(params)
     dt = x.dtype
+    cpu = x.device.type == "cpu"
     h = x.permute(0, 3, 1, 2)
     for w, bias, act in params:
-        if w.ndim == 3:  # depthwise (3, 3, C) → (C, 1, 3, 3), groups = C
-            wk = w.to(dt).permute(2, 0, 1).unsqueeze(1)
-            y = F.conv2d(h, wk, padding=1, groups=w.shape[2])
+        if w.ndim == 3 and cpu:
+            y = depthwise_sums(h, w.to(dt)).to(dt)
+        elif w.ndim == 3:  # (3, 3, C) → (C, 1, 3, 3), groups = C
+            y = F.conv2d(h, w.to(dt).permute(2, 0, 1).unsqueeze(1), padding=1, groups=w.shape[2])
         else:
-            wk = w.to(dt).permute(3, 2, 0, 1)
-            y = F.conv2d(h, wk, padding=w.shape[0] // 2)
+            cdt = torch.float32 if cpu else dt
+            wk = w.to(dt).to(cdt).permute(3, 2, 0, 1)
+            y = F.conv2d(h.to(cdt), wk, padding=w.shape[0] // 2).to(dt)
         y = y.float() + bias.float()[:, None, None]
         if act == "relu":
             y = torch.relu(y)
@@ -203,10 +229,22 @@ def dwconv3_route(shape: Sequence[int], dtype: torch.dtype, aligned: bool) -> st
 
     ``"tma"``: a pixel is a multiple of 16 bytes (C a multiple of 8 in
     bfloat16, of 4 in float32; a TMA tensor map needs 16-byte strides) and
-    the tensors are aligned. ``"tile"``: any other C (1..64) or alignment.
-    B, H and W do not matter."""
+    the tensors are aligned. ``"tile"``: any other C or alignment. B, H
+    and W do not matter."""
     c = shape[-1]
     return "tma" if aligned and c * dtype.itemsize % 16 == 0 else "tile"
+
+
+def dw_slices(c: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(slices, channels a slice) of a depthwise layer of ``c`` channels:
+    the fewest slices of at most ``MAX_DW_SLICE`` channels, each a multiple
+    of a 16-byte vector's channels (8 in bfloat16, 4 in float32), the last
+    one running past ``c`` where they do not divide it. ``c`` ≤ 64 is one
+    slice of ``c`` channels rounded up to the vector. ``csrc/dwconv3.cu``
+    ``slices_for`` is the same rule."""
+    vec = 16 // dtype.itemsize
+    n = -(-c // MAX_DW_SLICE)
+    return n, -(-(-(-c // n)) // vec) * vec
 
 
 def _dw_operands(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, out: torch.Tensor):
@@ -218,8 +256,8 @@ def _dw_operands(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, out: torc
     if tuple(w.shape) != (3, 3, c) or tuple(bias.shape) != (c,) or out.shape != x.shape:
         raise ValueError(f"depthwise layer {tuple(w.shape)}, bias {tuple(bias.shape)} does "
                          f"not fit input {tuple(x.shape)} / output {tuple(out.shape)}")
-    if not 1 <= c <= MAX_DW_CHANNELS:
-        raise ValueError(f"the depthwise kernel takes 1..{MAX_DW_CHANNELS} channels, got {c}")
+    if c < 1:
+        raise ValueError(f"a depthwise layer needs channels, got {c}")
     if not (x.is_contiguous() and out.is_contiguous() and bias.is_contiguous()
             and out.dtype == x.dtype and bias.dtype == torch.float32):
         raise ValueError("depthwise layer takes contiguous tensors and a float32 bias")
@@ -248,7 +286,8 @@ def dwconv3_launch_record(x: torch.Tensor) -> dict:
     """What a depthwise layer on ``x`` (contiguous NHWC on CUDA) launches,
     without launching it: the route, grid, threads, shared memory, the
     kernel's registers and spill bytes (``cudaFuncGetAttributes``), the
-    number of tiles and the tile's height and width."""
+    number of tiles, the tile's height and width, and the channel slices
+    and their width (``dw_slices``)."""
     if not dispatch.use_kernel(x):
         raise ValueError("the launch record is the card's: pass a CUDA tensor")
     out = torch.empty_like(x, memory_format=torch.contiguous_format)

@@ -53,6 +53,13 @@ dense layer into the slots of a (B, H, W, ceil8(C + L·G)) concatenation buffer,
 then ``nt_rdb_lff`` (``csrc/rdb.cu``); a CPU tensor runs ``rdb_taps_plain``.
 Weights and biases take the activation dtype's values, as the Pallas
 kernels pack them at the parameters' dtype.
+
+In bfloat16 the layer runs on warpgroup products, one float32 accumulator
+set per group held over all of cin: the kernel maps each tap to a set at
+compile time per contract family and output-row parity (``FAMILIES``, the
+kernel's ``SET_OF`` and ``FOLD``; ``accumulator_plan``), and takes its
+weights packed per call by ``ops.conv_chain.pack_conv_weights`` at the N
+tile ``n_tile``. ``launch_record`` says how a layer launches.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ import torch
 import torch.nn.functional as F
 
 from nerve_tpu_torch.ops import _build, dispatch
+from nerve_tpu_torch.ops.conv_chain import pack_conv_weights
 from nerve_tpu_torch.ops.conv_chain_int8 import exact_float32
 from nerve_tpu_torch.ops.rdb import RES_SCALE, lff_launch
 
@@ -87,6 +95,37 @@ ABLATIONS = ("noshift", "nolff", "matonly")  # each walks pallas_dx's groups
 MODES = (*CONTRACTS, *ABLATIONS)
 # The C flags (csrc/nerve_tpu_torch.h).
 _ACC_DTYPE, _NOSHIFT, _MATONLY = 1, 2, 4
+
+# The bf16 kernel's contract families (csrc/rdb_taps.cu ``SET_OF``, ``FOLD``):
+# family -> (the accumulator set of each tap t = 3·dy + dx for even and for
+# odd output rows, the sets in the order the epilogue adds them).
+FAMILIES: Dict[str, Tuple[Tuple[Tuple[int, ...], Tuple[int, ...]], Tuple[int, ...]]] = {
+    "pallas_dy": ((tuple(range(9)), tuple(range(9))), tuple(range(9))),
+    "pallas_dx": ((tuple(range(9)), tuple(range(9))), (0, 3, 6, 1, 4, 7, 2, 5, 8)),
+    "f32_taps": (((0,) * 9, (0,) * 9), (0,)),
+    "s2d": (((3, 4, 5, 0, 1, 2, 0, 1, 2), (0, 1, 2, 0, 1, 2, 3, 4, 5)), tuple(range(6))),
+}
+# acc_dtype and the ablations walk pallas_dx's groups.
+FAMILY_OF = {**{m: m for m in FAMILIES}, "acc_dtype": "pallas_dx",
+             **dict.fromkeys(ABLATIONS, "pallas_dx")}
+LAUNCH_RECORD = ("grid", "threads", "dynamic_smem_bytes", "static_smem_bytes", "registers",
+                 "spill_bytes", "tiles", "n_tile", "stages", "resident_weights",
+                 "accumulator_sets")
+
+
+def n_tile(cout: int) -> int:
+    """The bf16 kernel's output-channel tile (wgmma N) for ``cout`` channels:
+    16 or 32, wider layers walking 32-wide tiles."""
+    return 16 if cout <= 16 else 32
+
+
+def accumulator_plan(mode: str):
+    """``mode``'s family in the bf16 kernel: (the set of each tap for even
+    and odd rows, the sets in fold order)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown RDB tap mode {mode!r}; one of {MODES}")
+    return FAMILIES[FAMILY_OF[mode]]
+
 
 # Each mode of the TPU harnesses -> the port's contract.
 TPU_MODES = {
@@ -233,13 +272,34 @@ def rdb_taps_apply(x: torch.Tensor, params: Sequence[torch.Tensor],
     ctable = (ctypes.c_int * len(table))(*table)
     off = c
     for i in range(num_layers):
-        wk = params[2 * i].to(dt).float().contiguous()
+        wl = params[2 * i]
+        cout = wl.shape[-1]
+        # bf16: the B operand's image at the N tile; float32: HWIO as it is.
+        wk = (pack_conv_weights(wl.to(dt), n_tile(cout)) if dt == torch.bfloat16
+              else wl.float().contiguous())
         bk = params[2 * i + 1].to(dt).float().contiguous()
         _build.launch("nt_rdb_taps_conv", x.device, cat.data_ptr(), ccs, off, wk.data_ptr(),
-                      bk.data_ptr(), cat.data_ptr(), ccs, off, wk.shape[-1], b, h, w, ctable,
+                      bk.data_ptr(), cat.data_ptr(), ccs, off, cout, b, h, w, ctable,
                       flags, _build.dtype_code(x))
-        off += wk.shape[-1]
+        off += cout
     out = cat[..., :c].contiguous() if mode == "nolff" else lff_launch(
         cat, params[-2].to(dt), params[-1].to(dt))
     dispatch.launches["rdb_taps"] += 1
     return out
+
+
+def launch_record(x: torch.Tensor, cin: int, cout: int, mode: str = "pallas_dx") -> dict:
+    """What one bf16 dense layer of ``rdb_taps_apply`` launches for a block
+    on ``x`` (B, H, W, C) reading ``cin`` channels of its buffer, without
+    launching it: grid, threads, shared memory, the kernel's registers and
+    spill bytes (``cudaFuncGetAttributes``), tiles, N tile, stages a ring,
+    whether the weights stay resident, and the accumulator sets."""
+    if not dispatch.use_kernel(x) or x.dtype != torch.bfloat16:
+        raise ValueError("the launch record is the card's bf16 kernel's: pass a CUDA bf16 tensor")
+    table, _flags = launch_table(mode)
+    b, h, w, _c = x.shape
+    ccs = -(-max(cin, x.shape[-1]) // 8) * 8  # the block buffer's channel stride
+    rec = (ctypes.c_int * len(LAUNCH_RECORD))()
+    _build.launch("nt_rdb_taps_launch", x.device, x.data_ptr(), ccs, cin, cout, b, h, w,
+                  (ctypes.c_int * len(table))(*table), ctypes.addressof(rec))
+    return dict(zip(LAUNCH_RECORD, rec))

@@ -30,8 +30,13 @@ values at .5 steps of the next scale; the bf16 stack through its two
 buffers. The int8 slice's launches per frame are counted. The
 RDB under the TPU kernels' rounding contracts (``ops.rdb_taps``) is held at
 the RDB's levels and, in bfloat16, to a mean|Δ| against its contract's plain
-version at most ¼ of that against any other contract's; the planar d2s
-bit-exact.
+version at most ¼ of that against any other contract's, also over many
+tiles at an odd shape and in a block whose widest layer reads 384
+channels; the planar d2s bit-exact at odd widths and s = 2, 3, 4. The
+depthwise layer runs wider than 64 channels (channel slices) on both
+routes, and at 64 channels or fewer launches what it did before slices.
+The planar chain keeps a non-finite input value where the plain version
+does: the same values are not finite, the finite ones at the chain's level.
 """
 
 import importlib
@@ -276,7 +281,7 @@ def test_dw3_routes(cuda, c, dtype, act):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [8, 32, 64])
+@pytest.mark.parametrize("c", [8, 32, 64, 128])
 def test_dw3_many_tiles_per_block(cuda, c, dtype):
     """A frame where every persistent block walks several tiles through both
     stages."""
@@ -285,6 +290,65 @@ def test_dw3_many_tiles_per_block(cuda, c, dtype):
     rec = conv_chain.dwconv3_launch_record(x)
     assert rec["route"] == "tma" and rec["tiles"] >= 3 * rec["grid"], rec
     print(f"dw3 many tiles C={c} {dtype} {rec}: max|err| {_dw_check(x, layer, 'tma'):.3e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["tma", "tile"])
+@pytest.mark.parametrize("c", [96, 128, 200])
+def test_dw3_wide(cuda, c, route, dtype):
+    """Wider than one 64-channel slice, in one launch: "tma" on an aligned
+    input, "tile" on one 2 elements into its storage; 200 channels leave
+    the last slice partly past C."""
+    g = torch.Generator().manual_seed(80 + c)
+    shape = (2, 41, 67, c)
+    off = 0 if route == "tma" else 2
+    x = _rand(g, math.prod(shape) + off).to(cuda, dtype)[off:].view(shape)
+    layer = [_dw_params(g, c, "relu", cuda)]
+    rec = conv_chain.dwconv3_launch_record(x)
+    assert rec["route"] == route, rec
+    assert (rec["slices"], rec["slice_channels"]) == conv_chain.dw_slices(c, dtype), rec
+    assert rec["slices"] > 1 and rec["slice_channels"] <= 64, rec
+    print(f"dw3 wide C={c} {route} {dtype} {rec}: max|err| {_dw_check(x, layer, route):.3e}")
+
+
+@pytest.mark.cuda
+def test_dw3_narrow_launch_unchanged(cuda):
+    """C <= 64 is one slice of C and launches what the kernel launched before
+    channel slices: at the serving shapes the records measured then (grid
+    132 on an H100's 132 SMs), and at a ragged shape the earlier plan's
+    threads, shared memory and tiles on both routes and dtypes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for c, want in ((32, dict(threads=384, dynamic_smem_bytes=208920, tiles=2160, tile_h=30,
+                              tile_w=32)),
+                    (64, dict(threads=384, dynamic_smem_bytes=221208, tiles=4320, tile_h=30,
+                              tile_w=16))):
+        rec = conv_chain.dwconv3_launch_record(
+            torch.zeros((1, 1080, 1920, c), dtype=torch.bfloat16, device=cuda))
+        assert {k: rec[k] for k in want} == want and rec["grid"] == sms, rec
+        assert (rec["slices"], rec["slice_channels"]) == (1, c), rec
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        vec = 16 // es
+        for c in DW_CHANNELS:
+            x = torch.zeros((2, 97, 261, c), dtype=dtype, device=cuda)
+            rec = conv_chain.dwconv3_launch_record(x)
+            if c * es % 16 == 0:
+                cv = c * es // 16
+                tw = max(8, 128 // cv)
+                stage = 32 * (tw + 2) * cv * 16
+                want = dict(route="tma", threads=cv * tw * 3,
+                            dynamic_smem_bytes=min(3, (optin - 24) // stage) * stage + 24,
+                            tiles=2 * -(-261 // tw) * -(-97 // 30), tile_h=30, tile_w=tw)
+            else:
+                cv = -(-c // vec)
+                tiles = 2 * -(-261 // 32) * -(-97 // 16)
+                want = dict(route="tile", grid=tiles, threads=256,
+                            dynamic_smem_bytes=18 * 34 * cv * 16 + 10 * cv * vec * 4,
+                            tiles=tiles, tile_h=16, tile_w=32)
+            assert {k: rec[k] for k in want} == want, (c, dtype, rec)
+            assert (rec["slices"], rec["slice_channels"]) == (1, cv * vec), (c, dtype, rec)
 
 
 @pytest.mark.cuda
@@ -368,6 +432,34 @@ def test_planar_chain_many_tiles(cuda, shape):
     assert torch.equal(got, ops.planar_chain_apply(x, params))
     assert torch.equal(got, ops.planar_chain_apply(x, params, packed=pk))
     _check("conv_chain", got, planar_chain.planar_chain_plain(x, params), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chain", ["lightweight", "wide"])
+def test_planar_chain_non_finite(cuda, dtype, chain):
+    """One +Inf, one -Inf and one NaN in the input: the kernel's output is
+    not finite exactly where the plain version's is (the plain version run
+    on the CPU, whose convolutions are direct), and its finite values are
+    at the chain's level. The wide chain (20-channel layers: padded channels;
+    a depthwise layer last) shows a value kept to its channel directly; the
+    lightweight body's relu after each pair turns -Inf into 0."""
+    g = torch.Generator().manual_seed(15)
+    if chain == "lightweight":
+        params = _lightweight_body(g, cuda)
+        x = torch.rand((2, 3, 37, 101), generator=g)
+    else:
+        params = _conv_params(g, [5, 64, 20], [3, 1], cuda) + [_dw_params(g, 20, "none", cuda)]
+        x = _rand(g, 2, 5, 37, 101)
+    x[0, 0, 5, 7], x[0, 1, 20, 60], x[1, 2, 30, 90] = float("inf"), float("-inf"), float("nan")
+    x = x.to(cuda, dtype)
+    got = ops.planar_chain_apply(x, params)
+    ref = planar_chain.planar_chain_plain(
+        x.cpu(), [(w.cpu(), b.cpu(), a) for w, b, a in params]).to(cuda)
+    bad = ~torch.isfinite(ref)
+    assert 0 < int(bad.sum()) < bad.numel() // 4
+    assert torch.equal(~torch.isfinite(got), bad), int((~torch.isfinite(got) != bad).sum())
+    _check("conv_chain", torch.where(bad, 0, got), torch.where(bad, 0, ref), dtype)
 
 
 # name -> (layer widths, kinds: 3 / 1 dense, "dw" depthwise), each with a
@@ -723,11 +815,15 @@ def test_flow_warp_card_matches_cpu(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", [*rdb_taps.CONTRACTS, "noshift", "nolff"])
 def test_rdb_taps(cuda, dtype, mode):
-    """Each rounding contract and ablation on a ragged frame; C=12 takes the
-    element loads, C=64 the widest layers (cin 192 on a 16-wide slice)."""
+    """Each rounding contract and ablation on a ragged frame: C = 12 (cin
+    not a multiple of the 16-channel chunk), C = 64 (cin up to 192, the
+    weights resident), C = 64 over many tiles at an odd shape (the
+    ping-pong rings turn over many times), and C = 128 with growth 64 (cin
+    up to 384, two N tiles, the weights streamed with each chunk)."""
     g = torch.Generator().manual_seed(9)
-    for c, shape in ((12, (2, 13, 37)), (64, (1, 9, 35))):
-        params = [p.to(dtype) for p in _rdb_params(g, c, cuda)]
+    for c, shape, growth in ((12, (2, 13, 37), 32), (64, (1, 9, 35), 32),
+                             (64, (1, 131, 517), 32), (128, (1, 19, 70), 64)):
+        params = [p.to(dtype) for p in _rdb_params(g, c, cuda, growth=growth)]
         x = _rand(g, *shape, c).to(cuda, dtype)
         n0 = dispatch.launches["rdb_taps"]
         got = ops.rdb_taps_apply(x, params, mode)
@@ -736,6 +832,25 @@ def test_rdb_taps(cuda, dtype, mode):
         if dtype == torch.bfloat16 and mode in rdb_taps.CONTRACTS:
             mine, least_other = rdb_taps.contract_margin(got, x, params, mode)
             assert mine <= 0.25 * least_other, (mode, c, mine, least_other)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(rdb_taps.CONTRACTS))
+def test_rdb_taps_launch_record(cuda, mode):
+    """The bf16 layer's launch: one 384-thread block per SM, its contract's
+    accumulator sets, weights resident at cin 192 (N tile 32) and streamed
+    at cin 384 with two N tiles."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x = torch.zeros((1, 1080, 1920, 64), dtype=torch.bfloat16, device=cuda)
+    sets = len(rdb_taps.accumulator_plan(mode)[1])
+    rec = rdb_taps.launch_record(x, 192, 32, mode)
+    print(f"rdb_taps {mode} cin 192: {rec}")
+    assert rec["grid"] == sms and rec["threads"] == 384 and rec["tiles"] == 1080 * 30, rec
+    assert (rec["n_tile"], rec["resident_weights"], rec["accumulator_sets"]) == (32, 1, sets), rec
+    assert rec["stages"] >= 2, rec
+    rec = rdb_taps.launch_record(x, 384, 64, mode)
+    print(f"rdb_taps {mode} cin 384: {rec}")
+    assert (rec["n_tile"], rec["resident_weights"], rec["tiles"]) == (32, 0, 2 * 1080 * 30), rec
 
 
 @pytest.mark.cuda
@@ -794,9 +909,18 @@ def test_d2s_packed_layouts(cuda, case, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_d2s_packed_planar_bit_exact(cuda, dtype):
+    """Odd widths (element loads) at s = 2, 3, 4; widths of whole 16-byte
+    runs (bulk copies); rows of several segments; the serving shape."""
     g = torch.Generator().manual_seed(11)
-    for shape, s in (((2, 12, 13, 37), 2), ((1, 27, 5, 9), 3)):
+    for shape, s in (((2, 12, 13, 37), 2), ((1, 27, 5, 9), 3), ((2, 18, 7, 41), 3),
+                     ((1, 32, 6, 33), 4), ((2, 48, 3, 101), 4), ((2, 12, 5, 64), 2),
+                     ((1, 36, 4, 1536), 3), ((1, 12, 1080, 1920), 2)):
         x = _rand(g, *shape).to(cuda, dtype)
+        rec = d2s.planar_launch_record(x, s)
+        assert rec["bulk_copy"] == (shape[-1] * x.element_size() % 16 == 0), (shape, rec)
+        plan = d2s.planar_segments(shape[-1], shape[1] // (s * s), s, dtype)
+        assert rec["segment_pixels"] == plan["segment_pixels"], (shape, rec, plan)
+        assert rec["segments"] == shape[0] * shape[2] * plan["segments"], (shape, rec, plan)
         n0 = dispatch.launches["d2s_packed_planar"]
         got = ops.depth_to_space_packed_planar(x, s)
         assert dispatch.launches["d2s_packed_planar"] == n0 + 1

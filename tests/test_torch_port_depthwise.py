@@ -6,12 +6,13 @@ The plain depthwise layer (what a CPU tensor runs; the CUDA kernel
 bfloat16 against the JAX package's reference formulation ``_chain_xla``,
 compiled with ``xla_allow_excess_precision`` off so that XLA rounds where
 its source says, at the lightweight (32) and ``FeatureExtractor`` (64)
-widths, with float32 weights that bfloat16 does not represent (both round
+widths and wider, with float32 weights that bfloat16 does not represent (both round
 them to bfloat16 first). The plain packed depth-to-space is held bit-exact
 against ``depth_to_space_packed(use_pallas=False)`` in bfloat16 at the
-serving layout. The route rule of the depthwise kernel and its weight
-operand are pure Python and tested here; the kernels run in
-``tests/test_torch_port_cuda.py``.
+serving layout. The depthwise layer is also held at 96 and 128 channels,
+wider than one of the kernel's 64-channel slices (the reference takes any
+C). The route rule of the depthwise kernel and its weight operand are pure
+Python and tested here; the kernels run in ``tests/test_torch_port_cuda.py``.
 """
 
 import importlib
@@ -35,7 +36,7 @@ def _bf16(a):
 
 
 @pytest.mark.parametrize("act", ["relu", "none"])
-@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("c", [32, 64, 96, 128])
 def test_plain_depthwise_bf16_bit_exact_vs_xla(c, act):
     rng = np.random.default_rng(20 + c)
     x = rng.standard_normal((2, 7, 9, c)).astype(np.float32)

@@ -149,3 +149,35 @@ def test_probe_plain_on_sizes_and_offsets(n):
         dispatch.reset_launches()
         assert torch.equal(probe.probe_scale2(a), a * 2)
         assert dispatch.launches["probe"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chain", ["body", "dw_last"])
+def test_plain_path_non_finite_vs_jax(dtype, chain):
+    """One +Inf, one -Inf and one NaN in the input: the plain path (what
+    the kernel is held to on the card) is not finite exactly where
+    ``_planar_xla`` is not, and its finite values are the reference's
+    (bit-exact in bfloat16, 1e-5 of max|ref| in float32). ``dw_last`` ends
+    in two depthwise layers, the first with relu, so a value stays in its
+    channel up to the output."""
+    rng = np.random.default_rng(42)
+    params = _body(rng)
+    if chain == "dw_last":
+        params = params[:1] + [(rng.standard_normal((3, 3, 8)).astype(np.float32) / 3,
+                                (rng.standard_normal(8) * 0.1).astype(np.float32), a)
+                               for a in ("relu", "none")]
+    x = rng.random((2, 3, 13, 21)).astype(np.float32)
+    x[0, 0, 3, 4], x[0, 1, 8, 15], x[1, 2, 6, 10] = np.inf, -np.inf, np.nan
+    jdt, tdt = DTYPES[dtype]
+    got = ops.planar_chain_apply(torch.from_numpy(x).to(tdt), _torch(params)).float().numpy()
+    ref = np.asarray(exact_jit(jpc._planar_xla, static_argnums=3)(
+        jnp.asarray(x, jdt), [jnp.asarray(w) for w, _, _ in params],
+        [jnp.asarray(b) for _, b, _ in params], tuple(a for *_, a in params)).astype(jnp.float32))
+    bad = ~np.isfinite(ref)
+    assert 0 < bad.sum() < bad.size // 2
+    np.testing.assert_array_equal(~np.isfinite(got), bad)
+    got, ref = np.where(bad, 0, got), np.where(bad, 0, ref)
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got, ref)
+    else:
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * float(np.abs(ref).max()))
