@@ -102,7 +102,30 @@ Phases, each of which raises on failure and prints its wall time:
    its result must agree with the per-layer body's. Both bodies take the
    model's chain folded once, the planar one its pack made once.
 
-``--profile DIR`` profiles two steps of each slice (``diag.conv.profile``:
+8. Engine: the channel-first facade's ``EnhancementEngine`` in bfloat16 at
+   the full configuration (recovery base 64, window 2; SR 64 features, 8
+   RDBs, window 1, flow at half resolution), every weight seeded, strength
+   1, on a seeded uint8 (1, 5, 3, 1080, 1920) window with a (1, 1, 1080,
+   1920) mask over a 270 x 480 block: the keys and shapes of ``recovered``,
+   ``super_resolved`` and ``enhanced`` (2160 x 3840), finite values,
+   ``enhanced`` in [0, 1], ``recovered`` the input exactly outside the
+   mask; the launches of one call (8 ``rdb``, 8 ``rdb_lff``, a
+   ``correlation``, ``conv_chain``); the same engine through the plain
+   versions (max|Δ| ≤ 2e-2, mean ≤ 5e-4); ms per call in each mode
+   ("full", "sr_only", "recovery_only", "lightweight"; median of 3 after
+   one untimed call); ``enhance_video`` over 6 masked frames at 540 × 960,
+   uint8 out, frames per second; ``streaming_step_pair`` against two
+   ``streaming_step`` calls at the slice's limits, ms of each; then
+   ``quantize_int8(chains=True)`` (calibrated on a 540 × 960 crop): the
+   int8 kernels launch, ``rdb``, ``rdb_lff`` and ``conv_chain`` do not, six
+   weight packs, PSNR against the bf16 engine ≥ ``INT8_MIN_PSNR``, ms per
+   call in "full" and "sr_only"; the adaptive engine at budgets 0.2, 0.5,
+   0.9 (modes "lightweight", "sr_only", "full", complexity in [0, 1],
+   strength in [0.3, 1]); and ``python -m nerve_tpu_torch.enhance`` as a
+   subprocess on 4 uint8 frames at 270 × 480 (exit 0, its JSON line read).
+
+``--profile DIR`` profiles two steps of each slice, and two bf16 engine
+calls in "full" and in "recovery_only" mode (``diag.conv.profile``:
 idle share, kernels by time, the RDB fusions', dense layers' and ATen
 copies' time and launches per step). The probe (``diag.probe``) runs first
 in the device phase. The line before
@@ -121,11 +144,14 @@ import math
 import re
 import shutil
 import statistics
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -161,7 +187,16 @@ from nerve_tpu_torch.diag.conv import (
     serving_inputs,
     streamer,
 )
-from nerve_tpu_torch.models import LightweightSuperResolution, quantize_sr
+from nerve_tpu_torch.diag.conv import seed_all
+from nerve_tpu_torch.models import (
+    EngineConfig,
+    LightweightSuperResolution,
+    api,
+    quantize_sr,
+    streaming_prime,
+    streaming_step,
+    streaming_step_pair,
+)
 from nerve_tpu_torch.ops import (
     _build,
     conv_chain,
@@ -1072,6 +1107,255 @@ def run_diag_paths(dev):
     return rdb_launches, d2s_launches
 
 
+# --------------------------------------------------------------------------- #
+# The engine (phase 8): recovery, flagship SR and strength blend, served
+# through the channel-first facade and the enhance CLI
+# --------------------------------------------------------------------------- #
+ENGINE_CONFIG = EngineConfig(recovery_base_channels=64, recovery_temporal_window=2,
+                             sr_num_features=FEATURES, sr_num_residual_blocks=BLOCKS,
+                             sr_temporal_window=1, sr_flow_downsample=2)
+ENGINE_MODES = ("full", "sr_only", "recovery_only", "lightweight")
+# The mask: a 270 x 480 block of the 1080p centre frame.
+MASK_ROWS, MASK_COLS = slice(405, 675), slice(720, 1200)
+ENGINE_REPS = 3
+
+
+def timed_calls(fn, reps: int = ENGINE_REPS):
+    """(last result, median ms) of ``reps`` timed calls after one untimed,
+    host clock to a synchronise."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def seeded_engine(dev, seed: int) -> api.EnhancementEngine:
+    """The facade's bf16 engine at the full configuration, every parameter
+    and BN statistic seeded (``seed_all``), strength 1."""
+    eng = api.EnhancementEngine(ENGINE_CONFIG, seed=seed, dtype=torch.bfloat16, device=dev)
+    seed_all(eng.module, seed)
+    with torch.no_grad():
+        eng.engine.enhancement_strength.fill_(1.0)
+    return eng
+
+
+def check_engine_outputs(out, video_f, mask) -> None:
+    """Keys, shapes, finite values; ``enhanced`` in [0, 1] (strength 1);
+    ``recovered`` the input exactly outside the mask."""
+    b, _t, c, h, w = video_f.shape
+    want = {"recovered": (b, c, h, w), "super_resolved": (b, c, 2 * h, 2 * w),
+            "enhanced": (b, c, 2 * h, 2 * w)}
+    got = {k: tuple(v.shape) for k, v in out.items()}
+    if got != want:
+        raise AssertionError(f"engine outputs {got}, expected {want}")
+    for k, v in out.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"engine output {k} not finite")
+    if out["enhanced"].min() < 0 or out["enhanced"].max() > 1:
+        raise AssertionError("engine output outside [0, 1] at strength 1")
+    outside = mask[:, 0] == 0
+    centre = video_f[:, video_f.shape[1] // 2]
+    if not torch.equal(out["recovered"].permute(0, 2, 3, 1)[outside],
+                       centre.permute(0, 2, 3, 1)[outside]):
+        raise AssertionError("recovered differs from the input outside the mask")
+
+
+def engine_inputs(dev, t: int, h: int, w: int, seed: int):
+    """A seeded uint8 (1, t, 3, h, w) video on the card and a (1, 1, h, w)
+    mask covering a quarter-by-quarter block of it."""
+    g = torch.Generator().manual_seed(seed)
+    video = torch.randint(0, 256, (1, t, 3, h, w), generator=g, dtype=torch.uint8).to(dev)
+    mask = torch.zeros((1, 1, h, w), device=dev)
+    mask[..., 3 * h // 8:5 * h // 8, 3 * w // 8:5 * w // 8] = 1.0
+    return video, mask
+
+
+def run_engine_phase(dev, card: str) -> dict:
+    """Phase 8; returns the launch counts of one bf16 ``full`` call."""
+    video, mask = engine_inputs(dev, 5, H, W, seed=21)
+    assert mask[0, 0, MASK_ROWS, MASK_COLS].all() and int(mask.sum()) == 270 * 480
+    video_f = api.from_uint8(video)
+    eng = seeded_engine(dev, seed=0)
+    with torch.inference_mode():
+        eng(video, corruption_mask=mask)  # untimed
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        out = eng(video, corruption_mask=mask)
+        torch.cuda.synchronize()
+        launches = dict(dispatch.launches)
+        print(f"engine launches per full call {launches}", flush=True)
+        want = {"rdb": 8, "rdb_lff": 8}
+        if any(launches[k] != n for k, n in want.items()) or launches["correlation"] < 1 \
+                or launches["conv_chain"] == 0:
+            raise AssertionError(f"engine launches {launches}: expected 8 rdb, 8 rdb_lff, "
+                                 "a correlation and conv_chain")
+        check_engine_outputs(out, video_f, mask)
+        with plain_ops():
+            dispatch.reset_launches()
+            ref = eng(video, corruption_mask=mask)
+            if any(dispatch.launches.values()):
+                raise AssertionError(f"the plain engine launched kernels: {dispatch.launches}")
+        for k in ("recovered", "super_resolved", "enhanced"):
+            d = (out[k].float() - ref[k].float()).abs()
+            print(f"engine {k} kernels vs plain: max|d| {d.max().item():.3e} (limit "
+                  f"{SLICE_MAX_ABS}), mean|d| {d.mean().item():.3e} (limit {SLICE_MEAN_ABS})",
+                  flush=True)
+            if d.max() > SLICE_MAX_ABS or d.mean() > SLICE_MEAN_ABS:
+                raise AssertionError(f"engine {k} differs from the plain versions' output")
+        del ref
+        # Each mode from the seeded full engine: a mode switch keeps the
+        # weights the modes share (the lightweight net starts fresh, its tail
+        # at zero) and drops the rest, as the reference's facade does.
+        for mode in ENGINE_MODES:
+            m = seeded_engine(dev, seed=0)
+            m.set_enhancement_mode(mode)
+            _o, ms = timed_calls(lambda: m(video, corruption_mask=mask))
+            print(f"engine {mode} bf16 1080p->2160p: {ms:.2f} ms/call (median of "
+                  f"{ENGINE_REPS}) on {card}", flush=True)
+            del m, _o
+        check_video(eng, dev, card)
+        check_pair_step(eng.engine.super_resolution, video_f, card)
+        run_engine_int8(eng, video, mask, out["enhanced"], card)
+        del out
+        run_adaptive(dev, video)
+    check_cli(card)
+    return launches
+
+
+def check_video(eng, dev, card: str) -> None:
+    """``enhance_video`` over 6 frames at 540 x 960 with a mask each, uint8 out."""
+    video, mask = engine_inputs(dev, 6, H // 2, W // 2, seed=22)
+    masks = mask.expand(6, 1, H // 2, W // 2)
+    eng.enhance_video(video[0, :2], masks[:2], as_uint8=True)  # untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.enhance_video(video[0], masks, as_uint8=True)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    if tuple(out.shape) != (6, 3, H, W) or out.dtype != torch.uint8:
+        raise AssertionError(f"enhance_video gave {tuple(out.shape)} {out.dtype}")
+    print(f"engine enhance_video 6 x 540x960 -> 1080x1920 uint8 with masks: "
+          f"{6 / sec:.2f} frames/s on {card}", flush=True)
+
+
+def check_pair_step(model, video_f, card: str) -> None:
+    """``streaming_step_pair`` against two ``streaming_step`` calls on the
+    video's 1080p frames, from the same carry, at the slice's limits; ms per
+    output frame of each."""
+    frames = [video_f[:, i].permute(0, 2, 3, 1).contiguous() for i in range(4)]
+    carry = streaming_step(model, streaming_prime(model, frames[0]), frames[1])[0]
+
+    def singles():
+        c, a = streaming_step(model, carry, frames[2], "packed")
+        return a, streaming_step(model, c, frames[3], "packed")[1]
+
+    (a1, b1), ms1 = timed_calls(singles)
+    (a2, b2), ms2 = timed_calls(
+        lambda: streaming_step_pair(model, carry, frames[2], frames[3], "packed")[1])
+    dmax = max((a1.float() - a2.float()).abs().max().item(),
+               (b1.float() - b2.float()).abs().max().item())
+    dmean = max((a1.float() - a2.float()).abs().mean().item(),
+                (b1.float() - b2.float()).abs().mean().item())
+    print(f"streaming_step_pair vs two streaming_step: max|d| {dmax:.3e} (limit "
+          f"{SLICE_MAX_ABS}), mean|d| {dmean:.3e} (limit {SLICE_MEAN_ABS}); "
+          f"{ms1 / 2:.2f} ms/frame stepping, {ms2 / 2:.2f} ms/frame as a pair on {card}",
+          flush=True)
+    if dmax > SLICE_MAX_ABS or dmean > SLICE_MEAN_ABS:
+        raise AssertionError("the pair step differs from two single steps")
+
+
+def run_engine_int8(eng, video, mask, bf16_enhanced, card: str) -> None:
+    """``quantize_int8(chains=True)`` calibrated on a 540 x 960 crop (the
+    facade's zero mask): the int8 kernels launch, the bf16 dense and RDB
+    kernels do not, six weight packs, PSNR against the bf16 engine (also
+    outside the mask, printed)."""
+    t0 = time.perf_counter()
+    eng.quantize_int8(video[0, :, :, 270:810, 480:1440], chains=True)
+    torch.cuda.synchronize()
+    print(f"engine int8 calibration on 5 x 540x960: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    dispatch.reset_launches()
+    out = eng(video, corruption_mask=mask)
+    torch.cuda.synchronize()
+    launches, packs = dict(dispatch.launches), dispatch.packs["int8"]
+    print(f"engine int8 launches per full call {launches}; weight packs {packs}", flush=True)
+    if any(launches[k] == 0 for k in ("conv_chain_int8", "rdb_int8", "rdb_lff_i8",
+                                      "quantize_i8")) \
+            or any(launches[k] for k in ("rdb", "conv_chain", "rdb_lff")) or packs != 6:
+        raise AssertionError(f"engine int8 launches {launches}, packs {packs}")
+    db = psnr(out["enhanced"], bf16_enhanced)
+    outside = F.interpolate(mask, scale_factor=2.0)[:, 0] == 0
+    db_out = psnr(out["enhanced"].permute(0, 2, 3, 1)[outside],
+                  bf16_enhanced.permute(0, 2, 3, 1)[outside])
+    print(f"engine int8 vs bf16 enhanced: PSNR {db:.2f} dB (limit {INT8_MIN_PSNR}); "
+          f"outside the mask {db_out:.2f} dB", flush=True)
+    if db < INT8_MIN_PSNR:
+        raise AssertionError(f"int8 engine only {db:.2f} dB from the bf16 engine")
+    for mode in ("full", "sr_only"):
+        eng.set_enhancement_mode(mode)
+        _o, ms = timed_calls(lambda: eng(video, corruption_mask=mask))
+        print(f"engine {mode} int8 1080p->2160p: {ms:.2f} ms/call (median of {ENGINE_REPS}) "
+              f"on {card}", flush=True)
+
+
+def run_adaptive(dev, video) -> None:
+    """The adaptive engine at budgets 0.2, 0.5, 0.9: its mode, complexity in
+    [0, 1] and strength in [0.3, 1]."""
+    eng = api.AdaptiveEnhancementEngine(ENGINE_CONFIG, seed=1, dtype=torch.bfloat16,
+                                        device=dev)
+    for budget, mode in ((0.2, "lightweight"), (0.5, "sr_only"), (0.9, "full")):
+        out = eng(video, budget, 0.5)
+        c, s = out["complexity"], float(out["enhancement_strength"])
+        ok = (eng.config == ENGINE_CONFIG.with_mode(mode) and 0 <= c.min() <= c.max() <= 1
+              and 0.3 <= s <= 1.0 and tuple(out["enhanced"].shape) == (1, 3, 2 * H, 2 * W)
+              and bool(torch.isfinite(out["enhanced"]).all()))
+        print(f"adaptive budget {budget}: mode {mode}, complexity {c.flatten().tolist()}, "
+              f"strength {s:.4f} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"adaptive engine at budget {budget}")
+
+
+def engine_steppers(dev) -> dict:
+    """Step functions for ``profile``: one bf16 engine call in "full" and in
+    "recovery_only" mode on phase 8's window (the frame each is handed is
+    not used)."""
+    video, mask = engine_inputs(dev, 5, H, W, seed=21)
+    steppers = {}
+    for mode in ("full", "recovery_only"):
+        eng = seeded_engine(dev, seed=0)
+        eng.set_enhancement_mode(mode)
+        steppers[f"engine {mode}"] = (lambda _frame, eng=eng:
+                                      eng(video, corruption_mask=mask))
+    return steppers
+
+
+def check_cli(card: str) -> None:
+    """``python -m nerve_tpu_torch.enhance`` on 4 uint8 frames at 270 x 480."""
+    g = torch.Generator().manual_seed(23)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = Path(tmp, "in.npy"), Path(tmp, "out.npy")
+        np.save(src, torch.randint(0, 256, (4, 270, 480, 3), generator=g,
+                                   dtype=torch.uint8).numpy())
+        env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+        proc = subprocess.run(
+            [sys.executable, "-m", "nerve_tpu_torch.enhance", str(src), "-o", str(dst),
+             "--dtype", "bfloat16", "--sr-flow-downsample", "2"],
+            capture_output=True, text=True, env=env, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"the enhance CLI failed: {proc.stderr[-2000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        out = np.load(dst)
+    print(f"enhance CLI: {json.dumps(summary)} on {card}", flush=True)
+    if summary["output_shape"] != [4, 3, 540, 960] or out.dtype != np.uint8 \
+            or summary["backend"] != "cuda":
+        raise AssertionError(f"enhance CLI summary {summary}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -1127,10 +1411,13 @@ def main() -> int:
     del bf16_outs
     with phase("lightweight slice"):
         light_model, launches_lw, launches_planar = run_lightweight_slice(dev, video, card)
+    with phase("engine"):
+        run_engine_phase(dev, card)
     if args.profile:
         with phase("profile"):
             profile({"bf16": streamer(bf16_model), "int8": streamer(int8_model),
-                     "lightweight": lambda frame: light_model(frame, "packed")},
+                     "lightweight": lambda frame: light_model(frame, "packed"),
+                     **engine_steppers(dev)},
                     video, Path(args.profile))
     # Each kernel's launches from the run of the path that carries it.
     runs = {"conv_chain_int8": launches8, "rdb_int8": launches8, "quantize_i8": launches8,

@@ -78,13 +78,14 @@
 //     finishes no longer interleave; a per-thread flag in every chunk with
 //     a checked re-run of the stage still cost 1.5 %.)
 //   * relu keeps NaN (cvt's relu in the epilogue; fmaxf would turn NaN into
-//     0), as the reference's does. What still differs: an Inf or NaN that a
-//     finite input makes inside the chain (an overflow) is not checked for;
-//     whether a non-finite value is Inf or NaN, and its sign, is not held;
-//     and a layer whose width is not a multiple of 16 carries 0 * Inf = NaN
-//     in its padded channels into the next layer, where the reference's
-//     relu may have turned -Inf into 0 (the per-tile kernel below stores
-//     padded channels as zeros).
+//     0), as the reference's does. In a checked tile a layer whose width is
+//     not a multiple of 16 has its padded channels set to 0 after its stage
+//     (zero_padded): its zero weights make 0 * Inf = NaN there, which the
+//     next layer would carry into the pixel's real channels where the
+//     reference, which has no such channel, may have made an -Inf a 0 by
+//     its relu (the per-tile kernel below stores padded channels as zeros).
+//     What still differs: an Inf or NaN that a finite input makes inside
+//     the chain (an overflow) is not checked for.
 //   * Dense layers run mma.sync.m16n8k16 per tap and 16-channel chunk.
 //   * The last stage writes its tile into a planar [Cout][TH][TW] staging
 //     area, stored by one TMA store whose tensor map clips the ragged edge;
@@ -851,6 +852,21 @@ __device__ void run_stage(const Geo& G, const Stage& S, const bf16* src,
   }
 }
 
+// A layer's padded channels [c, ceil16(c)) of every region pixel set to 0,
+// in a tile whose input holds an Inf or NaN: there the products of their
+// zero weights with an Inf are NaN, which the next layer's zero weights
+// would carry into every channel of the pixel, where the reference has no
+// such channel (and its relu may have made an -Inf a 0). A finite tile's
+// padded channels are 0 already (zero weights and biases).
+__device__ __noinline__ void zero_padded(bf16* buf, int npix, int stride, int c) {
+  const int np = ceil16(c) - c;
+  const bf16 z = __float2bfloat16_rn(0.f);
+  for (int i = threadIdx.x; i < npix * np; i += BT) {
+    const int p = i / np;
+    buf[p * stride + c + (i - p * np)] = z;
+  }
+}
+
 // Pixel 0 of region buffer i (0 or 1).
 __device__ __forceinline__ bf16* buffer(const Plan& P, unsigned char* smem, int i) {
   return reinterpret_cast<bf16*>(smem + P.off_buf + i * P.buf_bytes) + SLACK_F * P.smax;
@@ -944,6 +960,10 @@ __global__ void __launch_bounds__(BT, 1)
                            : Walk{S.h * P.rw, (P.rh - S.h) * P.rw,
                                   ((P.rh - 2 * S.h) * P.rw + 15) / 16, 0, y0, x0};
       run_stage(G, S, src, smem, sink, wk, nonfinite);
+      if (nonfinite && !last && S.cout % 16) {
+        __syncthreads();
+        zero_padded(buffer(P, smem, si & 1), npix, P.smax, S.cout);
+      }
     }
     nt_fence_proxy_async();
     __syncthreads();

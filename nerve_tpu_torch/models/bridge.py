@@ -23,6 +23,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from nerve_tpu_torch.models.enhancement_engine import (
+    AdaptiveEnhancementEngine,
+    EnhancementEngine,
+    EngineConfig,
+)
+from nerve_tpu_torch.models.frame_recovery import FrameRecoveryNet
 from nerve_tpu_torch.models.super_resolution import LightweightSuperResolution, SuperResolutionNet
 
 COLLECTIONS = ("params", "batch_stats", "quant")
@@ -90,4 +96,31 @@ def lightweight_from_flax(variables_numpy: Mapping[str, Any], device="cuda",
     flax variables (``params`` and ``batch_stats``), strictly, on the card
     unless ``device="cpu"``."""
     model = LightweightSuperResolution(device=device, **config)
+    return load_flax_variables(model, variables_numpy).eval()
+
+
+def recovery_from_flax(variables_numpy: Mapping[str, Any], device="cuda",
+                       **config) -> FrameRecoveryNet:
+    """A ``FrameRecoveryNet(**config)`` in eval mode holding the flax
+    variables, strictly, on the card unless ``device="cpu"``."""
+    model = FrameRecoveryNet(device=device, **config)
+    return load_flax_variables(model, variables_numpy).eval()
+
+
+def engine_from_flax(variables_numpy: Mapping[str, Any], config: EngineConfig = EngineConfig(),
+                     device="cuda", **kwargs) -> EnhancementEngine:
+    """An ``EnhancementEngine(config, **kwargs)`` in eval mode holding the
+    flax engine's variables (an int8 one's ``"quant"`` collection too),
+    strictly, on the card unless ``device="cpu"``."""
+    model = EnhancementEngine(config, device=device, **kwargs)
+    return load_flax_variables(model, variables_numpy).eval()
+
+
+def adaptive_engine_from_flax(variables_numpy: Mapping[str, Any],
+                              config: EngineConfig = EngineConfig(), device="cuda",
+                              **kwargs) -> AdaptiveEnhancementEngine:
+    """An ``AdaptiveEnhancementEngine(config, **kwargs)`` in eval mode
+    holding the flax variables, strictly, on the card unless
+    ``device="cpu"``."""
+    model = AdaptiveEnhancementEngine(config, device=device, **kwargs)
     return load_flax_variables(model, variables_numpy).eval()

@@ -1,4 +1,4 @@
-"""Building blocks of the SR network (NHWC, inference only).
+"""Building blocks of the SR and recovery networks (NHWC, inference only).
 
 Counterpart of ``nerve_tpu/models/layers.py``. Each module holds its
 parameters in float32 under the names of the flax tree (``kernel``,
@@ -7,6 +7,13 @@ variable tree onto ``state_dict()`` name for name. Forwards cast weights
 and activations to the module's ``dtype`` where the reference does.
 Initial values are drawn from ``generator`` (normal, lecun/he scale, zero
 biases); they are placeholders until real weights are loaded.
+
+Layers the reference runs on XLA (the recovery network's convolutions,
+BatchNorm, ``ResidualBlock``, ``TemporalConv3D``) run plain ATen/cuDNN
+here, rounding where flax rounds: a convolution in the module's dtype, then
+its bias added in that dtype; BatchNorm in float32 from the running
+statistics, ``(x - mean) · (rsqrt(var + eps) · scale) + bias``, cast to the
+dtype (``batch_norm``).
 
 The int8 state of a quantised conv-chain site lives in buffers under the
 name of the flax ``"quant"`` collection's entry (``qhead``, ``qflow``,
@@ -207,6 +214,59 @@ class BNParams(nn.Module):
         self.register_buffer("var", torch.ones(features, device=device))
 
 
+def check_inference(mod: nn.Module) -> None:
+    """Raise if ``mod`` is in training mode (live BatchNorm is not ported)."""
+    if mod.training:
+        raise RuntimeError(f"{type(mod).__name__} is inference only: call .eval() first")
+
+
+def conv_nhwc(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None,
+              stride: int = 1, padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """flax ``nn.Conv`` on (B, H, W, C) ``x`` with an HWIO ``kernel``, in
+    x's dtype (kernel cast to it); ``bias`` is added after, in that dtype.
+    ``padding`` (an int, or per axis) is symmetric; for a 1×1 kernel "SAME"
+    is ``padding=0`` at any stride. A depthwise kernel is (kh, kw, 1, C)
+    with ``groups=C``."""
+    dt = x.dtype
+    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.to(dt).permute(3, 2, 0, 1), stride=stride,
+                 padding=padding, groups=groups).permute(0, 2, 3, 1)
+    return y if bias is None else y + bias.to(dt)
+
+
+def conv_transpose_nhwc(x: torch.Tensor, kernel: torch.Tensor, stride: int = 2) -> torch.Tensor:
+    """flax ``nn.ConvTranspose(k × k, strides=stride, padding="SAME")`` on
+    (B, H, W, C) ``x``, in x's dtype: the input dilated by ``stride`` and
+    padded by k + stride - 2 in all, half before, under the (k, k, in, out)
+    kernel unflipped; ``F.conv_transpose2d`` is the same with the kernel
+    flipped in both spatial axes, laid out (in, out, k, k), and padding
+    (k - stride) / 2 (output H · stride)."""
+    k = kernel.shape[0]
+    w = kernel.to(x.dtype).flip(0, 1).permute(2, 3, 0, 1)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=(k - stride) // 2)
+    return y.permute(0, 2, 3, 1)
+
+
+def batch_norm(x: torch.Tensor, bn: "BNParams", dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.BatchNorm(use_running_average=True, dtype=dtype)``: in
+    float32, ``(x - mean) · (rsqrt(var + eps) · scale) + bias``, cast to
+    ``dtype``; channels last. One float32 copy of x."""
+    mul = torch.rsqrt(bn.var + BN_EPS) * bn.scale
+    y = x.to(torch.float32, copy=True)
+    return y.sub_(bn.mean).mul_(mul).add_(bn.bias).to(dtype)
+
+
+class DenseParams(ConvParams):
+    """A flax ``nn.Dense``: kernel (in, out) and bias."""
+
+    def __init__(self, features: int, in_features: int, device=None, generator=None):
+        super().__init__(features, (), in_features, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """In ``dtype``: the product rounded, then the bias added."""
+        x = x.to(dtype)
+        return x @ self.kernel.to(dtype) + self.bias.to(dtype)
+
+
 class DepthwiseSeparableConv(nn.Module):
     """Depthwise 3×3 + pointwise 1×1 + BatchNorm + relu, eval statistics.
 
@@ -241,6 +301,17 @@ class DepthwiseSeparableConv(nn.Module):
         "relu")."""
         kd, kp, bp = self.folded()
         return [(kd, torch.zeros_like(kd[0, 0]), "none"), (kp, bp, "relu")]
+
+    def unfolded(self, x: torch.Tensor) -> torch.Tensor:
+        """The reference module's own eval path (how ``ResidualBlock`` calls
+        it), not folded: both convolutions in ``dtype``, then BatchNorm as
+        a per-channel scale and shift rounded to ``dtype``, relu."""
+        dt = self.dtype
+        bn = self.BatchNorm_0
+        inv = bn.scale / torch.sqrt(bn.var + BN_EPS)
+        y = conv_nhwc(x.to(dt), self.depthwise.kernel, padding=1, groups=x.shape[-1])
+        y = conv_nhwc(y, self.pointwise.kernel)
+        return torch.relu(y * inv.to(dt) + (bn.bias - bn.mean * inv).to(dt))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_fused:
@@ -329,3 +400,77 @@ class CBAM(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.SpatialAttention_0(self.ChannelAttention_0(x))
+
+
+class ResidualBlock(nn.Module):
+    """Two conv blocks with an identity skip (counterpart of the reference's
+    ``ResidualBlock``). Efficient: the depthwise-separable ``conv1`` (its
+    own BatchNorm and relu, ``DepthwiseSeparableConv.unfolded``), a
+    depthwise 3×3 ``conv2_dw``, a 1×1 ``conv2_pw``, ``bn2``, then add and
+    relu. Otherwise 3×3 ``conv1``, ``bn1``, relu, 3×3 ``conv2``, ``bn2``,
+    add, relu. Plain ATen/cuDNN in ``dtype``."""
+
+    def __init__(self, channels: int, use_efficient: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None, generator=None):
+        super().__init__()
+        self.use_efficient = use_efficient
+        self.dtype = dtype
+        kw = dict(device=device, generator=generator)
+        c = channels
+        if use_efficient:
+            self.conv1 = DepthwiseSeparableConv(c, c, dtype=dtype, **kw)
+            self.conv2_dw = KernelParams((3, 3, 1, c), **kw)
+            self.conv2_pw = KernelParams((1, 1, c, c), **kw)
+        else:
+            self.conv1 = KernelParams((3, 3, c, c), **kw)
+            self.bn1 = BNParams(c, device)
+            self.conv2 = KernelParams((3, 3, c, c), **kw)
+        self.bn2 = BNParams(c, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        if self.use_efficient:
+            out = self.conv1.unfolded(x)
+            out = conv_nhwc(out, self.conv2_dw.kernel, padding=1, groups=x.shape[-1])
+            out = conv_nhwc(out, self.conv2_pw.kernel)
+        else:
+            out = conv_nhwc(x.to(dt), self.conv1.kernel, padding=1)
+            out = torch.relu(batch_norm(out, self.bn1, dt))
+            out = conv_nhwc(out, self.conv2.kernel, padding=1)
+        return torch.relu(batch_norm(out, self.bn2, dt) + x)
+
+
+def temporal_mid_channels(in_ch: int, out_ch: int, tk: int) -> int:
+    """The (2+1)D convolution's middle width (the reference's formula)."""
+    mid = (in_ch * out_ch * 3 * 3 * tk) // (in_ch * 3 * 3 + out_ch * tk)
+    return max(mid, out_ch // 2)
+
+
+class TemporalConv3D(nn.Module):
+    """(2+1)D convolution of (B, T, H, W, C): a 1×3×3 ``spatial`` conv,
+    ``spatial_bn``, relu, a T×1×1 ``temporal`` conv (zero padded in time),
+    ``temporal_bn``, relu; kernels kept as flax's 5-D (kt, kh, kw, in, out).
+    The spatial conv runs as a 3×3 conv over B·T frames, the temporal one as
+    a (kt, 1) conv over (T, H·W) planes: plain cuDNN/ATen in ``dtype``."""
+
+    def __init__(self, in_features: int, features: int, temporal_kernel: int = 3,
+                 dtype: torch.dtype = torch.float32, device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.temporal_kernel = temporal_kernel
+        mid = temporal_mid_channels(in_features, features, temporal_kernel)
+        kw = dict(device=device, generator=generator)
+        self.spatial = KernelParams((1, 3, 3, in_features, mid), **kw)
+        self.spatial_bn = BNParams(mid, device)
+        self.temporal = KernelParams((temporal_kernel, 1, 1, mid, features), **kw)
+        self.temporal_bn = BNParams(features, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        b, t, h, w, c = x.shape
+        y = conv_nhwc(x.reshape(b * t, h, w, c).to(dt), self.spatial.kernel[0], padding=1)
+        y = torch.relu(batch_norm(y, self.spatial_bn, dt)).reshape(b, t, h * w, -1)
+        tp = self.temporal_kernel // 2
+        y = conv_nhwc(y, self.temporal.kernel[:, 0], padding=(tp, 0))
+        y = torch.relu(batch_norm(y, self.temporal_bn, dt))
+        return y.reshape(b, t, h, w, -1)

@@ -10,14 +10,19 @@ and passes the exact result downstream. Usage::
     model = SuperResolutionNet(..., quantized=True, quantized_chains=True)
     quantize_sr(model, calib_frames)        # (B, T, H, W, C) windows
     carry = streaming_prime(model, frame0)  # then the same streaming calls
+
+:func:`quantize_engine` does the same for an ``EnhancementEngine`` whose SR
+net is quantised, on the windows the engine feeds that net: after
+recovery, the recovered centre in place.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import List, Mapping
+from typing import List, Mapping, Optional
 
 import torch
+import torch.nn as nn
 
 from nerve_tpu_torch.models.super_resolution import (
     RDBStack,
@@ -104,3 +109,26 @@ def quantize_sr(model: SuperResolutionNet, frames: torch.Tensor,
     with _quant_modes(model, "calibrate", True):
         model(frames.to(dev))
     return model
+
+
+def quantize_engine(engine: nn.Module, frames: torch.Tensor,
+                    corruption_mask: Optional[torch.Tensor] = None,
+                    device="cuda") -> nn.Module:
+    """Calibrate the int8 state of ``engine``'s SR net, in place, on one
+    forward of the engine over ``frames`` (B, T, H, W, C) with
+    ``corruption_mask`` (B, H, W, 1): each site takes its scales from what
+    it is fed there, behind recovery. An ``AdaptiveEnhancementEngine`` runs
+    its inner engine mask-free, as its forward does. Each int8 state packs
+    its weights once, at its first serving call, as after ``quantize_sr``.
+    The engine moves to ``device`` and eval mode first and is returned."""
+    inner = getattr(engine, "engine", engine)
+    sr = getattr(inner, "super_resolution", None)
+    if not isinstance(sr, SuperResolutionNet) or not (sr.quantized or sr.quantized_chains):
+        raise ValueError("the engine's SR net has no quantised site: build it with "
+                         "sr_quantized=True and/or sr_quantized_chains=True")
+    dev = resolve_device(device)
+    engine.to(dev).eval()
+    mask = corruption_mask if inner is engine else None
+    with _quant_modes(sr, "calibrate", True):
+        inner(frames.to(dev), None, None if mask is None else mask.to(dev))
+    return engine

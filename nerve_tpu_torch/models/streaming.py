@@ -58,3 +58,35 @@ def enhance_video_streaming(model: SuperResolutionNet, video: torch.Tensor) -> t
         outs.append(out)
     ys = torch.stack(outs, dim=1)
     return ys[:, ys.shape[1] - t:]
+
+
+@torch.inference_mode()
+def streaming_step_pair(model: SuperResolutionNet, carry: Carry, new1: torch.Tensor,
+                        new2: torch.Tensor, output_layout: str = "nhwc"
+                        ) -> Tuple[Carry, Tuple[torch.Tensor, torch.Tensor]]:
+    """Feed two new LR frames; emit the SR frames centred w and w - 1 back.
+
+    Both steps' work runs batched: one feature extraction of the two new
+    frames, one flow estimate and warp of all 4w (neighbour, centre) pairs,
+    and one fuse tail (attention, RDB stack, fusion, upsampler, epilogue)
+    at batch 2B. Equal to two ``streaming_step`` calls, a frame later.
+    """
+    w = model.temporal_window
+    b = new1.shape[0]
+    feats = list(carry[: 2 * w])
+    lrs = list(carry[2 * w:])
+    f_pair = model.extract_features(torch.cat([new1, new2], 0))
+    wf = feats + [f_pair[:b], f_pair[b:]]  # frames t-2w+1 .. t+2; centres at w, w + 1
+    prev_a, ctr_a, nxt_a = wf[:w], wf[w], wf[w + 1:2 * w + 1]
+    prev_b, ctr_b, nxt_b = wf[1:w + 1], wf[w + 1], wf[w + 2:]
+    nbs = prev_a + nxt_a + prev_b + nxt_b
+    warped = model.align_to_center(torch.cat(nbs, 0),
+                                   torch.cat([ctr_a] * (2 * w) + [ctr_b] * (2 * w), 0))
+    ws = [warped[i * b:(i + 1) * b] for i in range(4 * w)]
+    al_a = ws[:w] + [ctr_a] + ws[w:2 * w]
+    al_b = ws[2 * w:3 * w] + [ctr_b] + ws[3 * w:]
+    aligned = [torch.cat([a, c], 0) for a, c in zip(al_a, al_b)]
+    center_lr = torch.cat([lrs[0], lrs[1] if w >= 2 else new1], 0)
+    out = model.fuse_from_features(aligned, torch.cat([ctr_a, ctr_b], 0), center_lr,
+                                   output_layout)
+    return tuple(wf[2:]) + tuple((lrs + [new1, new2])[-w:]), (out[:b], out[b:])

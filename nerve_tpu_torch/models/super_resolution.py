@@ -318,8 +318,12 @@ class SuperResolutionNet(nn.Module):
         return self.fuse_from_features(aligned, center_feat, center_lr, output_layout)
 
     @torch.inference_mode()
-    def forward(self, lr_frames: torch.Tensor, output_layout: str = "nhwc") -> torch.Tensor:
-        """(B, T, H, W, C) window → SR of its centre frame."""
+    def forward(self, lr_frames: torch.Tensor, output_layout: str = "nhwc",
+                return_intermediate: bool = False):
+        """(B, T, H, W, C) window → SR of its centre frame. With
+        ``return_intermediate``, (SR, {"features": (B, T, H, W, F),
+        "aligned": (B, T, H, W, F), "aggregated": (B, H, W, F)}), the
+        reference's debug outputs."""
         b, t, h, w, c = lr_frames.shape
         if t != self.num_frames:
             raise ValueError(f"expected T={self.num_frames} frames "
@@ -336,8 +340,12 @@ class SuperResolutionNet(nn.Module):
             warped = self.align_to_center(nb, ctr).reshape(b, len(others), h, w, -1)
             aligned = [center_feat if j == center else warped[:, others.index(j)]
                        for j in range(t)]
-        return self.fuse_from_features(aligned, center_feat, lr_frames[:, center],
-                                       output_layout)
+        out = self.fuse_from_features(aligned, center_feat, lr_frames[:, center],
+                                      output_layout)
+        if return_intermediate:
+            return out, {"features": feats, "aligned": torch.stack(aligned, dim=1),
+                         "aggregated": self.temporal_aggregator(aligned)}
+        return out
 
 
 class LightweightSuperResolution(nn.Module):
@@ -384,3 +392,16 @@ class LightweightSuperResolution(nn.Module):
         residual_ch = ops.conv_chain_apply(x.to(self.dtype), self.chain())
         bicubic_ch = ops.upsample_bicubic_channels(x, s)
         return _epilogue(bicubic_ch, residual_ch, s, self.dtype, output_layout)
+
+
+def estimate_sr_flops(input_hw: Sequence[int] = (128, 128), num_features: int = 64,
+                      num_frames: int = 3, scale_factor: int = 2) -> int:
+    """Coarse FLOPs estimate of ``SuperResolutionNet`` (the reference's
+    ``get_flops``)."""
+    h, w = input_hw
+    c, f = 3, num_features
+    flops = h * w * c * f * 9
+    flops += h * w * f * 81 * (num_frames - 1)
+    flops += h * w * f * f * 9 * 8
+    flops += h * w * f * (c * scale_factor**2) * 9
+    return flops

@@ -19,6 +19,7 @@ from nerve_tpu_torch.ops.pixel_shuffle import (  # noqa: F401
     pixel_shuffle_planar,
 )
 from nerve_tpu_torch.ops.resize import (  # noqa: F401
+    resize_bicubic,
     resize_bilinear,
     upsample_bicubic_channels,
     upsample_bilinear_channels,
@@ -31,4 +32,10 @@ from nerve_tpu_torch.ops.conv_chain_int8 import conv_chain_int8_apply  # noqa: F
 from nerve_tpu_torch.ops.rdb_int8 import rdb_chain_int8_apply  # noqa: F401
 from nerve_tpu_torch.ops.warp import flow_warp  # noqa: F401
 from nerve_tpu_torch.ops.correlation import correlation_volume  # noqa: F401
-from nerve_tpu_torch.ops.pool import avg_pool2d, global_avg_pool  # noqa: F401
+from nerve_tpu_torch.ops.pool import (  # noqa: F401
+    adaptive_avg_pool2d,
+    avg_pool2d,
+    global_avg_pool,
+    max_pool2d,
+    max_pool3d_spatial,
+)

@@ -1,4 +1,4 @@
-"""Integer-scale bicubic / bilinear upsampling and bilinear resize, NHWC.
+"""Bicubic and bilinear upsampling and resizing, NHWC.
 
 Counterpart of ``nerve_tpu/ops/resize.py``. For an integer scale s every
 output phase p has fixed taps: output ``s*k + p`` samples source
@@ -8,7 +8,8 @@ index clamping). Bicubic uses A = -0.75, torch's coefficient. The
 ``*_channels`` variants return the s² phases as channels in PixelShuffle
 order without the final depth-to-space, so the SR epilogue adds its
 residual before one interleave. Arithmetic stays in the input dtype, in
-the reference's order.
+the reference's order. ``resize_bicubic`` to any other size gathers 4
+taps per axis in float32 (indices clamped to the frame).
 """
 
 from __future__ import annotations
@@ -104,3 +105,47 @@ def resize_bilinear(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
     y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(oh, ow),
                       mode="bilinear", align_corners=False, antialias=False)
     return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def _cubic_contribs(in_size: int, out_size: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-pixel 4-tap indices (clamped) and float32 weights along
+    one axis: half-pixel centres, taps x0 - 1 .. x0 + 2."""
+    scale = in_size / out_size
+    x = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * scale - 0.5
+    x0 = torch.floor(x)
+    t = x - x0
+    d = torch.stack([t + 1.0, t, 1.0 - t, 2.0 - t], dim=-1).abs()
+    a = _A
+    near = (a + 2.0) * d**3 - (a + 3.0) * d**2 + 1.0
+    far = a * d**3 - 5.0 * a * d**2 + 8.0 * a * d - 4.0 * a
+    w = torch.where(d <= 1.0, near, far)
+    idx = x0.long()[:, None] + torch.arange(-1, 3, device=device)[None, :]
+    return idx.clamp_(0, in_size - 1), w
+
+
+def _interp_axis(x: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:
+    n = x.shape[dim]
+    if n == out_size:
+        return x
+    idx, w = _cubic_contribs(n, out_size, x.device)
+    taps = x.index_select(dim, idx.reshape(-1))
+    shape = list(x.shape)
+    shape[dim:dim + 1] = [out_size, 4]
+    wshape = [1] * len(shape)
+    wshape[dim], wshape[dim + 1] = out_size, 4
+    return (taps.reshape(shape) * w.reshape(wshape)).sum(dim + 1)
+
+
+def resize_bicubic(x: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:
+    """Bicubic (A = -0.75, torch's) resize of (B, H, W, C) to (B, oh, ow, C).
+
+    An equal integer upscale on both axes takes the phase route
+    (``upsample_bicubic_channels`` and one depth-to-space); any other size
+    4 taps per axis in float32, H first, cast back to x's dtype.
+    """
+    b, h, w, c = x.shape
+    oh, ow = out_hw
+    if oh % h == 0 and ow % w == 0 and oh // h == ow // w and oh > h:
+        return pixel_shuffle(upsample_bicubic_channels(x, oh // h), oh // h)
+    y = _interp_axis(x.float(), 1, oh)
+    return _interp_axis(y, 2, ow).to(x.dtype)

@@ -36,7 +36,8 @@ channels; the planar d2s bit-exact at odd widths and s = 2, 3, 4. The
 depthwise layer runs wider than 64 channels (channel slices) on both
 routes, and at 64 channels or fewer launches what it did before slices.
 The planar chain keeps a non-finite input value where the plain version
-does: the same values are not finite, the finite ones at the chain's level.
+does: the same values are NaN, +Inf and -Inf, the finite ones at the chain's
+level, also behind padded channels where a relu turns an -Inf into 0.
 """
 
 import importlib
@@ -434,31 +435,57 @@ def test_planar_chain_many_tiles(cuda, shape):
     _check("conv_chain", got, planar_chain.planar_chain_plain(x, params), torch.bfloat16)
 
 
+def _padded_relu_chain(g, dev):
+    """A folded 3 -> 20 head + relu whose weights from channel 0 are all
+    positive, a (depthwise 20, 1x1 20 -> 20 + relu) pair and a 3x3 20 -> 12
+    tail: an -Inf in channel 0 makes every head channel around it -Inf,
+    which the relu turns into 0, so the reference stays finite; the
+    kernel's 12 padded head channels must not carry 0 * -Inf = NaN on."""
+    w = _rand(g, 3, 3, 3, 20, std=27 ** -0.5)
+    w[:, :, 0, :] = w[:, :, 0, :].abs()
+    return [(w.to(dev), _rand(g, 20, std=0.1).to(dev), "relu"), _dw_params(g, 20, "none", dev),
+            *_conv_params(g, [20, 20, 12], [1, 3], dev)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("chain", ["lightweight", "wide"])
+@pytest.mark.parametrize("chain", ["lightweight", "wide", "padded_relu"])
 def test_planar_chain_non_finite(cuda, dtype, chain):
     """One +Inf, one -Inf and one NaN in the input: the kernel's output is
-    not finite exactly where the plain version's is (the plain version run
-    on the CPU, whose convolutions are direct), and its finite values are
-    at the chain's level. The wide chain (20-channel layers: padded channels;
-    a depthwise layer last) shows a value kept to its channel directly; the
-    lightweight body's relu after each pair turns -Inf into 0."""
+    NaN, +Inf and -Inf exactly where the plain version's is (the plain
+    version run on the CPU, whose convolutions are direct), and its finite
+    values are at the chain's level. The wide chain (20-channel layers:
+    padded channels; a depthwise layer last) shows a value kept to its
+    channel directly; the lightweight body's relu after each pair turns
+    -Inf into 0. The padded-relu chain (``_padded_relu_chain``) takes one
+    -Inf, which a relu must zero: its output is finite everywhere."""
     g = torch.Generator().manual_seed(15)
     if chain == "lightweight":
         params = _lightweight_body(g, cuda)
         x = torch.rand((2, 3, 37, 101), generator=g)
-    else:
+    elif chain == "wide":
         params = _conv_params(g, [5, 64, 20], [3, 1], cuda) + [_dw_params(g, 20, "none", cuda)]
         x = _rand(g, 2, 5, 37, 101)
-    x[0, 0, 5, 7], x[0, 1, 20, 60], x[1, 2, 30, 90] = float("inf"), float("-inf"), float("nan")
+    else:
+        params = _padded_relu_chain(g, cuda)
+        x = torch.rand((2, 3, 37, 101), generator=g)
+    if chain == "padded_relu":
+        x[1, 0, 20, 60] = float("-inf")
+    else:
+        x[0, 0, 5, 7], x[0, 1, 20, 60], x[1, 2, 30, 90] = (float("inf"), float("-inf"),
+                                                           float("nan"))
     x = x.to(cuda, dtype)
     got = ops.planar_chain_apply(x, params)
     ref = planar_chain.planar_chain_plain(
         x.cpu(), [(w.cpu(), b.cpu(), a) for w, b, a in params]).to(cuda)
     bad = ~torch.isfinite(ref)
-    assert 0 < int(bad.sum()) < bad.numel() // 4
-    assert torch.equal(~torch.isfinite(got), bad), int((~torch.isfinite(got) != bad).sum())
+    if chain == "padded_relu":
+        assert not bad.any()
+    else:
+        assert 0 < int(bad.sum()) < bad.numel() // 4
+    for kind in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(kind(got), kind(ref)), (kind.__name__,
+                                                   int((kind(got) != kind(ref)).sum()))
     _check("conv_chain", torch.where(bad, 0, got), torch.where(bad, 0, ref), dtype)
 
 
@@ -949,3 +976,40 @@ def test_probe_sizes_and_offsets(cuda, n):
         got = probe.probe_scale2(a)
         assert dispatch.launches["probe"] == n0 + 1
         assert torch.equal(got, a * 2)
+
+
+@pytest.mark.cuda
+def test_engine_small_matches_plain(cuda):
+    """The facade's engine (recovery base 8; SR 16 features, 2 RDBs, flow at
+    half resolution) in bfloat16 on a 64 x 96 uint8 window with a mask:
+    the card's outputs against the same engine on the CPU, whose ops are
+    the plain versions, at the bf16 slice's limits; ``recovered`` the input
+    outside the mask; 2 ``rdb`` and 2 ``rdb_lff`` launches."""
+    # Imported here: the rest of this file also runs against checkouts that
+    # predate the engine (the planar chain's repair, parent against change).
+    from nerve_tpu_torch.models import EngineConfig, api
+
+    cfg = EngineConfig(recovery_base_channels=8, sr_num_features=16, sr_num_residual_blocks=2,
+                       sr_flow_downsample=2)
+    eng = api.EnhancementEngine(cfg, seed=0, dtype=torch.bfloat16, device=cuda)
+    diag_conv.seed_all(eng.module, 0)
+    cpu = api.EnhancementEngine(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
+    cpu.module.load_state_dict(eng.module.state_dict())
+    g = torch.Generator().manual_seed(24)
+    video = torch.randint(0, 256, (1, 5, 3, 64, 96), generator=g, dtype=torch.uint8)
+    mask = torch.zeros((1, 1, 64, 96))
+    mask[..., 20:40, 30:70] = 1
+    n0 = dict(dispatch.launches)
+    got = eng(video, corruption_mask=mask)
+    assert dispatch.launches["rdb"] - n0["rdb"] == 2
+    assert dispatch.launches["rdb_lff"] - n0["rdb_lff"] == 2
+    ref = cpu(video, corruption_mask=mask)
+    for k in ("recovered", "super_resolved", "enhanced"):
+        d = (got[k].cpu().float() - ref[k].float()).abs()
+        assert d.max() <= 2e-2 and d.mean() <= 5e-4, (k, d.max().item(), d.mean().item())
+    outside = mask[0, 0] == 0
+    centre = video[0, 2].float() / 255
+    assert torch.equal(got["recovered"][0].cpu()[:, outside], centre[:, outside])
+    # uint8 frames divide by 255 on the card as on the CPU, bit for bit.
+    every = torch.arange(256, dtype=torch.uint8)
+    assert torch.equal(api.from_uint8(every.to(cuda)).cpu(), every.float() / 255)

@@ -102,6 +102,15 @@ def _run(code: str, env_extra=None) -> subprocess.CompletedProcess:
                           capture_output=True, text=True, timeout=120)
 
 
+# The serving path's modules, which the walk above must reach and import.
+SERVING_MODULES = (
+    "nerve_tpu_torch.enhance", "nerve_tpu_torch.models.api",
+    "nerve_tpu_torch.models.enhancement_engine", "nerve_tpu_torch.models.frame_recovery",
+    "nerve_tpu_torch.models.streaming", "nerve_tpu_torch.models.quantize",
+    "nerve_tpu_torch.ops.pool", "nerve_tpu_torch.ops.resize",
+)
+
+
 def test_port_imports_no_jax():
     code = (
         "import importlib, importlib.util, pkgutil, sys, nerve_tpu_torch\n"
@@ -111,6 +120,8 @@ def test_port_imports_no_jax():
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'nerve_tpu'))\n"
         "assert not bad, bad\n"
+        f"missing = sorted(set({SERVING_MODULES!r}) - set(sys.modules))\n"
+        "assert not missing, missing\n"
     )
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
