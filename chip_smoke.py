@@ -1,6 +1,6 @@
 """Drive the PyTorch port's SR serving paths once on an NVIDIA GPU.
 
-    python3 chip_smoke.py              # the checks below, ~2 min on an H100 with the build
+    python3 chip_smoke.py              # the checks below, ~3-4 min on an H100 with the build
     python3 chip_smoke.py --profile build/traces   # also profile the three slices
 
 Phases, each of which raises on failure and prints its wall time:
@@ -124,10 +124,42 @@ Phases, each of which raises on failure and prints its wall time:
    strength in [0.3, 1]); and ``python -m nerve_tpu_torch.enhance`` as a
    subprocess on 4 uint8 frames at 270 × 480 (exit 0, its JSON line read).
 
+9. Train: the flagship's training path. (a) Each kernel op of the
+   training forward at the training shapes (batch 16, LR 64 × 64, 64
+   features; ``diag.train.grad_cases``) in float32 (TF32 off) and bfloat16:
+   the attention chain on its list of three frames, the 8-block RDB stack,
+   the correlation on the 32 neighbour pairs, the warp; the op as the model
+   calls it (an autograd Function: the kernels forward, the vjp of the
+   plain version backward) against plain autograd through the plain
+   version, with the same inputs, weights and upstream gradient: the output
+   and each gradient within ``TRAIN_LIMITS`` of max|plain|, max and mean
+   |Δ| printed, the kernels launched. (b) The flagship train step (64/8,
+   window 1, bfloat16 compute, float32 master weights, AdamW; seeded
+   weights; batch 16, 64² → 128² panning windows of
+   ``make_video_sr_dataset``) for ``TRAIN_STEPS`` steps: each step's
+   forward launches 10 ``conv_chain``, 8 ``rdb``, 8 ``rdb_lff`` and 1
+   ``correlation`` and nothing else; the same steps from the same weights
+   and batches with the plain versions launch nothing; the losses within
+   ``TRAIN_LOSS_REL``, the parameters within ``TRAIN_PARAM_REL`` of the
+   largest parameter change (max|Δ|) and ``TRAIN_PARAM_L2`` (L2); ms per
+   step (median of 20 after 3 untimed), samples/s, peak memory. (c)
+   ``training.fit_sr`` on a seeded ``make_video_sr_dataset`` (64 train, 16
+   val), 3 epochs at lr 3e-3 without warm-up, from the model's own
+   initialisation: every loss finite, the last epoch's mean below the
+   first's. (d) The train state after (b) saved by
+   ``utils.checkpoint.CheckpointManager`` and restored into a fresh model
+   and optimiser: its next step's loss equals the uninterrupted run's to
+   the bit. (e) ``python -m nerve_tpu_torch.train_baseline`` (1 epoch, 32
+   train and 16 val samples, 64/8) as a subprocess: exit 0, its last line
+   ``{"best_psnr", "final_psnr"}``.
+
 ``--profile DIR`` profiles two steps of each slice, and two bf16 engine
 calls in "full" and in "recovery_only" mode (``diag.conv.profile``:
 idle share, kernels by time, the RDB fusions', dense layers' and ATen
-copies' time and launches per step). The probe (``diag.probe``) runs first
+copies' time and launches per step), and two train steps
+(``diag.train.profile_split``: device ms per step of the forward's
+kernels, the forward's ATen work, the backward's recompute of the plain
+versions, the rest of the backward and the optimiser). The probe (``diag.probe``) runs first
 in the device phase. The line before
 the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -162,6 +194,7 @@ from nerve_tpu_torch.diag import d2s as diag_d2s
 from nerve_tpu_torch.diag import probe
 from nerve_tpu_torch.diag.planar import launch_path
 from nerve_tpu_torch.diag import rdb as diag_rdb
+from nerve_tpu_torch.diag import train as diag_train
 from nerve_tpu_torch.diag.conv import (
     BLOCKS,
     FEATURES,
@@ -191,12 +224,17 @@ from nerve_tpu_torch.diag.conv import seed_all
 from nerve_tpu_torch.models import (
     EngineConfig,
     LightweightSuperResolution,
+    SuperResolutionNet,
     api,
     quantize_sr,
     streaming_prime,
     streaming_step,
     streaming_step_pair,
 )
+from nerve_tpu_torch import training
+from nerve_tpu_torch.config.schema import TrainingConfig
+from nerve_tpu_torch.utils import data as data_lib
+from nerve_tpu_torch.utils.checkpoint import CheckpointManager
 from nerve_tpu_torch.ops import (
     _build,
     conv_chain,
@@ -1356,6 +1394,182 @@ def check_cli(card: str) -> None:
         raise AssertionError(f"enhance CLI summary {summary}")
 
 
+# --------------------------------------------------------------------------- #
+# Training (phase 9): the kernel ops under autograd, the flagship train step
+# against the plain versions, learning, resume and the training CLI
+# --------------------------------------------------------------------------- #
+# Output and gradients, kernel route vs plain route, (float32, bfloat16)
+# relative to max|plain|: the kernels' forward levels above; the backward of
+# both routes is the plain version's vjp at the same inputs. The warp has no
+# kernel: its own backward (a float32 scatter, rounded once) against
+# autograd's bfloat16 scatter, at the chain's level (measured on an H100:
+# 8.1e-3 in bfloat16, 1.6e-7 in float32).
+TRAIN_LIMITS = {"conv_chain": (1e-4, 2.4e-2), "rdb": (1e-4, 1.56e-2),
+                "correlation": (1e-5, 1e-2), "warp": (1e-5, 2.4e-2)}
+TRAIN_STEPS = 5
+TRAIN_LOSS_REL = 2e-2  # kernel vs plain run, each step's loss (measured 3.4e-4)
+# Parameters after TRAIN_STEPS steps, kernel vs plain run: max|Δ| relative to
+# the largest parameter change, and the L2 norm of Δ relative to the change's
+# (measured 0.72 and 6.2e-3 on an H100). AdamW moves each weight by about
+# ±lr a step whatever its gradient's size, so a weight whose gradient is near
+# 0 moves either way in the two runs: max|Δ| is of the order of the change.
+TRAIN_PARAM_REL, TRAIN_PARAM_L2 = 1.0, 0.05
+TRAIN_LAUNCHES = {"conv_chain": 10, "rdb": 8, "rdb_lff": 8, "correlation": 1}
+
+
+def check_train_grads(dev) -> None:
+    """Phase 9a: each kernel op under autograd against its plain version."""
+    for dt in (torch.float32, torch.bfloat16):
+        for name, (kernel, plain, leaves, g) in diag_train.grad_cases(dev, dt).items():
+            dispatch.reset_launches()
+            r = diag_train.compare_grads(kernel, plain, leaves, g)
+            launched = {k: v for k, v in dispatch.launches.items() if v}
+            limit = TRAIN_LIMITS[name][dt == torch.bfloat16]
+            parts = [("output", r["forward"])] + [(f"grad {i}", st)
+                                                   for i, st in enumerate(r["grads"])]
+            worst = max(parts, key=lambda kv: kv[1]["max_abs"] / max(kv[1]["scale"], 1e-30))
+            print(f"train grad {name} {str(dt)[6:]}: output max|d| "
+                  f"{r['forward']['max_abs']:.3e} mean {r['forward']['mean_abs']:.3e} "
+                  f"(max|plain| {r['forward']['scale']:.3e}); worst of {len(r['grads'])} "
+                  f"gradients: {worst[0]} max|d| {worst[1]['max_abs']:.3e} mean "
+                  f"{worst[1]['mean_abs']:.3e} (max|plain| {worst[1]['scale']:.3e}); limit "
+                  f"{limit} of max|plain|; launches {launched}", flush=True)
+            for label, st in parts:
+                if not st["max_abs"] <= limit * st["scale"]:
+                    raise AssertionError(f"train {name} {dt}: {label} differs from the plain "
+                                         "version's")
+            if name != "warp" and not launched:
+                raise AssertionError(f"train {name}: the kernel route launched no kernel")
+
+
+def _train_run(model, batches, plain: bool):
+    """TRAIN_STEPS steps: (state, step, losses, launches of each step)."""
+    state, step = diag_train.step_fn(model, steps=TRAIN_STEPS + 1)
+    losses, launches = [], []
+    with plain_ops() if plain else contextlib.nullcontext():
+        for batch in batches[:TRAIN_STEPS]:
+            dispatch.reset_launches()
+            _s, metrics = step(state, *batch)
+            torch.cuda.synchronize()
+            losses.append(metrics["loss"].item())
+            launches.append({k: v for k, v in dispatch.launches.items() if v})
+    return state, step, losses, launches
+
+
+def check_train_steps(dev, card: str, batches):
+    """Phase 9b: the flagship train step, kernels against plain versions;
+    returns the kernel run's (model, state, step) and its launches per step."""
+    model = diag_train.train_model(dev, seed=0)
+    p0 = [p.detach().clone() for p in model.parameters()]
+    state, step, losses, launches = _train_run(model, batches, plain=False)
+    print(f"train step launches {launches[0]} (each of {TRAIN_STEPS} steps)", flush=True)
+    if any(lc != TRAIN_LAUNCHES for lc in launches):
+        raise AssertionError(f"train step launches {launches}, expected {TRAIN_LAUNCHES}")
+    plain_model = diag_train.train_model(dev, seed=0)
+    _ps, _pstep, plosses, plaunches = _train_run(plain_model, batches, plain=True)
+    if any(plaunches):
+        raise AssertionError(f"the plain train steps launched kernels: {plaunches}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plosses)]
+    print(f"train losses kernels {losses}, plain {plosses}: max rel {max(rel):.3e} (limit "
+          f"{TRAIN_LOSS_REL})", flush=True)
+    if not all(math.isfinite(v) for v in losses + plosses) or max(rel) > TRAIN_LOSS_REL:
+        raise AssertionError("the kernel run's losses differ from the plain run's")
+    with torch.no_grad():
+        pk = torch.cat([p.flatten() for p in model.parameters()])
+        pp = torch.cat([p.flatten() for p in plain_model.parameters()])
+        change = pk - torch.cat([p.flatten() for p in p0])
+        d = (pk - pp).abs()
+        dmax, cmax = d.max().item(), change.abs().max().item()
+        dl2, cl2 = d.norm().item(), change.norm().item()
+    print(f"train params after {TRAIN_STEPS} steps, kernels vs plain: max|d| {dmax:.3e} = "
+          f"{dmax / cmax:.3e} of the largest change {cmax:.3e} (limit {TRAIN_PARAM_REL}); "
+          f"L2 {dl2:.3e} = {dl2 / cl2:.3e} of the change's {cl2:.3e} (limit {TRAIN_PARAM_L2}); "
+          f"mean|d| {d.mean().item():.3e}", flush=True)
+    if not (dmax <= TRAIN_PARAM_REL * cmax and dl2 <= TRAIN_PARAM_L2 * cl2):
+        raise AssertionError("the kernel run's parameters differ from the plain run's")
+    timing = diag_train.train_step_timing(model, batches[0])
+    print(f"train step 64/8 bf16 batch {diag_train.BATCH} "
+          f"{diag_train.LR_SIZE}^2->{2 * diag_train.LR_SIZE}^2: {timing['ms_per_step']:.2f} "
+          f"ms/step (median of 20 after 3 untimed; min {timing['ms_min']:.2f}, max "
+          f"{timing['ms_max']:.2f}), {timing['samples_per_s']:.1f} samples/s, peak "
+          f"{timing['peak_bytes'] / 2**30:.2f} GiB allocated, on {card}", flush=True)
+    return model, state, step, launches[0]
+
+
+def check_learning(dev, card: str) -> None:
+    """Phase 9c: ``fit_sr`` from the model's own initialisation."""
+    g = torch.Generator().manual_seed(3)
+    train_data = data_lib.make_video_sr_dataset(g, 64, diag_train.LR_SIZE)
+    val_data = data_lib.make_video_sr_dataset(g, 16, diag_train.LR_SIZE)
+    model = SuperResolutionNet(scale_factor=2, num_features=FEATURES, num_residual_blocks=BLOCKS,
+                               temporal_window=1, dtype=torch.bfloat16, device=dev,
+                               generator=torch.Generator().manual_seed(4))
+    cfg = TrainingConfig(epochs=3, batch_size=diag_train.BATCH, learning_rate=3e-3,
+                         warmup_epochs=0)
+    t0 = time.perf_counter()
+    _state, hist = training.fit_sr(model, train_data, val_data, cfg, 3, seed=0,
+                                   log_fn=lambda s: print(f"fit_sr {s}", flush=True))
+    per = len(hist["losses"]) // cfg.epochs
+    first, last = (statistics.mean(hist["losses"][:per]),
+                   statistics.mean(hist["losses"][-per:]))
+    print(f"fit_sr 3 epochs x {per} steps: losses {hist['losses']}; epoch means {first:.5f} "
+          f"-> {last:.5f}; best val PSNR {hist['best_psnr']:.2f} dB; "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    if not all(math.isfinite(v) for v in hist["losses"]) or not last < first:
+        raise AssertionError("fit_sr did not learn: a loss is not finite or the loss rose")
+
+
+def check_resume(dev, state, step, batch) -> None:
+    """Phase 9d: save, restore into a fresh model and optimiser, one more step."""
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep_last_n=1)
+        mgr.save(state.step, {**state.state_dict(), "best_psnr": -1.0})
+        _s, metrics = step(state, *batch)
+        fresh = diag_train.train_model(dev, seed=9)
+        fstate, fstep = diag_train.step_fn(fresh, steps=TRAIN_STEPS + 1)
+        template = {**fstate.state_dict(), "best_psnr": -1.0}
+        fstate.load_state_dict(mgr.restore(template))
+        _f, fmetrics = fstep(fstate, *batch)
+    loss, floss = metrics["loss"], fmetrics["loss"]
+    print(f"train resume at step {fstate.step - 1}: loss {loss.item()!r} uninterrupted, "
+          f"{floss.item()!r} restored", flush=True)
+    if not torch.equal(loss, floss):
+        raise AssertionError("the restored trainer's loss differs from the uninterrupted run's")
+
+
+def check_train_cli(card: str) -> None:
+    """Phase 9e: ``python -m nerve_tpu_torch.train_baseline`` at 64/8."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "nerve_tpu_torch.train_baseline", "--epochs", "1",
+             "--train-samples", "32", "--val-samples", "16", "--num-features", "64",
+             "--num-blocks", "8", "--checkpoint-dir", str(Path(tmp, "ck"))],
+            capture_output=True, text=True, env=env, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"the train_baseline CLI failed: {proc.stderr[-2000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"train_baseline CLI: {json.dumps(summary)} in {time.perf_counter() - t0:.1f} s "
+          f"on {card}", flush=True)
+    if set(summary) != {"best_psnr", "final_psnr"} or not math.isfinite(summary["final_psnr"]):
+        raise AssertionError(f"train_baseline summary {summary}")
+
+
+def run_train_phase(dev, card: str, profile_dir=None) -> dict:
+    """Phase 9; returns the launches of one train step."""
+    check_train_grads(dev)
+    batches = diag_train.train_batches(dev, TRAIN_STEPS + 1)
+    model, state, step, launches = check_train_steps(dev, card, batches)
+    check_resume(dev, state, step, batches[TRAIN_STEPS])
+    if profile_dir is not None:
+        diag_train.profile_split(model, batches[0], Path(profile_dir))
+    del model, state, step
+    check_learning(dev, card)
+    check_train_cli(card)
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -1413,6 +1627,8 @@ def main() -> int:
         light_model, launches_lw, launches_planar = run_lightweight_slice(dev, video, card)
     with phase("engine"):
         run_engine_phase(dev, card)
+    with phase("train"):
+        run_train_phase(dev, card, args.profile)
     if args.profile:
         with phase("profile"):
             profile({"bf16": streamer(bf16_model), "int8": streamer(int8_model),

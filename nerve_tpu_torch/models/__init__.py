@@ -3,6 +3,7 @@
 from nerve_tpu_torch.models.bridge import (  # noqa: F401
     adaptive_engine_from_flax,
     engine_from_flax,
+    flax_variables,
     lightweight_from_flax,
     load_flax_variables,
     recovery_from_flax,

@@ -13,6 +13,11 @@ raises, and int8 entries stay int8 and may fill only int8 buffers. A model
 quantised with ``PER_CHANNEL_INT8`` loads unchanged: its wire format is the
 same (the per-channel factors tiled over the taps), and serving it takes
 ``ops.rdb_int8.PER_CHANNEL_INT8 = True`` in the port too.
+
+``flax_variables`` is the reverse for a float model: its parameters and
+BatchNorm statistics as a flax-shaped ``{"params", "batch_stats"}`` tree of
+numpy arrays (how the tests hold a trained port against the JAX package by
+flax path).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from nerve_tpu_torch.models.enhancement_engine import (
     EngineConfig,
 )
 from nerve_tpu_torch.models.frame_recovery import FrameRecoveryNet
+from nerve_tpu_torch.models.layers import batch_stats
 from nerve_tpu_torch.models.super_resolution import LightweightSuperResolution, SuperResolutionNet
 
 COLLECTIONS = ("params", "batch_stats", "quant")
@@ -79,6 +85,26 @@ def load_flax_variables(module: nn.Module, variables: Mapping[str, Any]) -> nn.M
         new[k] = torch.from_numpy(arr)
     module.load_state_dict(new, strict=True)
     return module
+
+
+def _nest(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        *parents, leaf = key.split(".")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+def flax_variables(module: nn.Module) -> Dict[str, Dict[str, Any]]:
+    """``module``'s parameters (``"params"``) and BatchNorm running
+    statistics (``"batch_stats"``) as nested dicts of float32 numpy arrays
+    under the flax paths; int8 state is not exported."""
+    params = {k: p.detach().float().cpu().numpy() for k, p in module.named_parameters()}
+    stats = {k: b.detach().float().cpu().numpy() for k, b in batch_stats(module).items()}
+    return {"params": _nest(params), "batch_stats": _nest(stats)}
 
 
 def sr_from_flax(variables_numpy: Mapping[str, Any], device="cuda",

@@ -12,8 +12,8 @@ Parameters carry the flax tree's names (``models.bridge``). Everything is
 plain ATen/cuDNN, as the reference runs it on XLA, in the module's dtype
 with flax's roundings (``models.layers.conv_nhwc``, ``batch_norm``); the
 blend is float32. The model is built on the card unless the caller passes
-``device="cpu"``; training mode raises (live BatchNorm waits for the
-training slice).
+``device="cpu"``; training mode raises (its live BatchNorm, in
+``ResidualBlock`` and ``TemporalConv3D``, is not ported yet).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Building blocks of the SR and recovery networks (NHWC, inference only).
+"""Building blocks of the SR and recovery networks (NHWC).
 
 Counterpart of ``nerve_tpu/models/layers.py``. Each module holds its
 parameters in float32 under the names of the flax tree (``kernel``,
@@ -7,6 +7,10 @@ variable tree onto ``state_dict()`` name for name. Forwards cast weights
 and activations to the module's ``dtype`` where the reference does.
 Initial values are drawn from ``generator`` (normal, lecun/he scale, zero
 biases); they are placeholders until real weights are loaded.
+They serve inference; ``DepthwiseSeparableConv`` also trains (live
+BatchNorm), and the conv-chain modules train through the ops' autograd
+Functions. ``ResidualBlock``, ``TemporalConv3D`` and the int8 sites are
+inference only.
 
 Layers the reference runs on XLA (the recovery network's convolutions,
 BatchNorm, ``ResidualBlock``, ``TemporalConv3D``) run plain ATen/cuDNN
@@ -214,8 +218,15 @@ class BNParams(nn.Module):
         self.register_buffer("var", torch.ones(features, device=device))
 
 
+def batch_stats(module: nn.Module) -> dict:
+    """The BatchNorm running statistics under ``module`` by ``state_dict`` name."""
+    return {f"{name}.{k}": getattr(mod, k) for name, mod in module.named_modules()
+            if isinstance(mod, BNParams) for k in ("mean", "var")}
+
+
 def check_inference(mod: nn.Module) -> None:
-    """Raise if ``mod`` is in training mode (live BatchNorm is not ported)."""
+    """Raise if ``mod`` is in training mode (the recovery network's live
+    BatchNorm is not ported)."""
     if mod.training:
         raise RuntimeError(f"{type(mod).__name__} is inference only: call .eval() first")
 
@@ -268,15 +279,21 @@ class DenseParams(ConvParams):
 
 
 class DepthwiseSeparableConv(nn.Module):
-    """Depthwise 3×3 + pointwise 1×1 + BatchNorm + relu, eval statistics.
+    """Depthwise 3×3 + pointwise 1×1 + BatchNorm + relu.
 
-    The forward folds BatchNorm into the pointwise conv as the reference's
-    ``as_entries`` does (layers.py:207-224) and runs the pair with the
-    rounding of ``_chain_xla``, in the input's dtype. By default it is plain
-    PyTorch: the reference forces this body to XLA too
+    In eval mode the forward folds BatchNorm into the pointwise conv as the
+    reference's ``as_entries`` does (layers.py:207-224) and runs the pair
+    with the rounding of ``_chain_xla``, in the input's dtype. By default it
+    is plain PyTorch: the reference forces this body to XLA too
     (super_resolution.py:75-78). ``use_fused`` (default off, as in the
     reference) runs the pair through ``ops.conv_chain_apply`` in ``dtype``,
     so on the card through the depthwise and dense conv kernels.
+
+    In training mode it is the reference's train path (layers.py:252-270),
+    plain ATen/cuDNN: both convolutions in ``dtype``, BatchNorm from the
+    batch's statistics in float32 over (B, H, W) with the biased variance,
+    the running statistics updated to ``0.9 · old + 0.1 · batch`` (not
+    ``nn.BatchNorm2d``'s unbiased variance), the affine in ``dtype``, relu.
     """
 
     def __init__(self, features: int, in_features: int, device=None, generator=None,
@@ -313,7 +330,24 @@ class DepthwiseSeparableConv(nn.Module):
         y = conv_nhwc(y, self.pointwise.kernel)
         return torch.relu(y * inv.to(dt) + (bn.bias - bn.mean * inv).to(dt))
 
+    def train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The training-mode forward; updates the running statistics."""
+        dt = self.dtype
+        bn = self.BatchNorm_0
+        y = conv_nhwc(x.to(dt), self.depthwise.kernel, padding=1, groups=x.shape[-1])
+        y = conv_nhwc(y, self.pointwise.kernel)
+        yf = y.float()
+        m = yf.mean(dim=(0, 1, 2))
+        v = (yf - m).square().mean(dim=(0, 1, 2))
+        with torch.no_grad():
+            bn.mean.copy_(0.9 * bn.mean + 0.1 * m)
+            bn.var.copy_(0.9 * bn.var + 0.1 * v)
+        inv = bn.scale / torch.sqrt(v + BN_EPS)
+        return torch.relu(y * inv.to(dt) + (bn.bias - m * inv).to(dt))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self.train_forward(x)
         if self.use_fused:
             return ops.conv_chain_apply(x.to(self.dtype), self.as_entries())
         dt = x.dtype

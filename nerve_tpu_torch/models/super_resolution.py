@@ -1,4 +1,4 @@
-"""The SR networks (NHWC, inference only).
+"""The SR networks (NHWC).
 
 Counterpart of ``SuperResolutionNet`` with its parts and of
 ``LightweightSuperResolution`` in ``nerve_tpu/models/super_resolution.py``.
@@ -23,6 +23,14 @@ feature head, flow head, attention logits, gff and upsampler convs) reads
 static scales from buffers that ``models.quantize.quantize_sr`` calibrates
 or ``models.bridge`` loads from the JAX ``"quant"`` collection. It is
 inference only: a quantised site raises in training mode.
+
+``SuperResolutionNet`` also trains: in ``model.train()`` its forward runs
+under autograd, the feature body's three depthwise-separable blocks one
+after another with live BatchNorm (as the reference's ``train=True``), and
+the kernel ops as ``torch.autograd.Function``s (kernels forward, the vjp of
+their plain versions backward; ``ops.dispatch``). Its eval forward runs
+under ``torch.inference_mode``. The epilogue's clamp is
+``minimum(maximum(·, 0), 1)``, ``jnp.clip``'s gradient of ½ at a bound.
 
 The models are built on the card unless the caller passes ``device="cpu"``.
 """
@@ -73,7 +81,7 @@ class FeatureExtractor(nn.Module):
                                generator=generator)
         for i in range(3):
             self.add_module(f"body{i}", DepthwiseSeparableConv(
-                num_features, num_features, device, generator))
+                num_features, num_features, device, generator, dtype=dtype))
         add_chain_quant(self, "qhead", [self.head.entry("relu")], chain_quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -89,7 +97,9 @@ def _epilogue(bicubic_ch: torch.Tensor, residual_ch: torch.Tensor, scale: int,
               dtype: torch.dtype, output_layout: str) -> torch.Tensor:
     """Bicubic base + residual in phase-channel space, clamped to [0, 1] in
     float32, cast to ``dtype``, then one depth-to-space into the layout."""
-    out_ch = torch.clamp(bicubic_ch.float() + residual_ch.float(), 0.0, 1.0).to(dtype)
+    summed = bicubic_ch.float() + residual_ch.float()
+    out_ch = torch.minimum(torch.maximum(summed, summed.new_zeros(())),
+                           summed.new_ones(())).to(dtype)
     if output_layout == "planar":
         return ops.pixel_shuffle_planar(out_ch, scale)
     if output_layout == "packed":
@@ -317,13 +327,20 @@ class SuperResolutionNet(nn.Module):
                    + [warped[(w + i) * b:(w + i + 1) * b] for i in range(len(next_feat))])
         return self.fuse_from_features(aligned, center_feat, center_lr, output_layout)
 
-    @torch.inference_mode()
     def forward(self, lr_frames: torch.Tensor, output_layout: str = "nhwc",
                 return_intermediate: bool = False):
         """(B, T, H, W, C) window → SR of its centre frame. With
         ``return_intermediate``, (SR, {"features": (B, T, H, W, F),
         "aligned": (B, T, H, W, F), "aggregated": (B, H, W, F)}), the
-        reference's debug outputs."""
+        reference's debug outputs. Under autograd in training mode, under
+        ``torch.inference_mode`` in eval mode."""
+        if self.training:
+            return self._forward(lr_frames, output_layout, return_intermediate)
+        with torch.inference_mode():
+            return self._forward(lr_frames, output_layout, return_intermediate)
+
+    def _forward(self, lr_frames: torch.Tensor, output_layout: str,
+                 return_intermediate: bool):
         b, t, h, w, c = lr_frames.shape
         if t != self.num_frames:
             raise ValueError(f"expected T={self.num_frames} frames "

@@ -9,7 +9,11 @@ rounding contracts) and the int8 ``conv_chain_int8_apply`` and
 ``rdb_chain_int8_apply``. Each
 runs its kernel on a CUDA tensor and its plain PyTorch version on a CPU
 tensor (see ``ops.dispatch``). The rest is plain PyTorch, as it was plain
-XLA in the JAX package. Importing builds nothing.
+XLA in the JAX package. Importing builds nothing. Under autograd the ops the
+training forward runs (``conv_chain_apply``, ``rdb_chain_apply``,
+``correlation_volume``, ``flow_warp``) are ``torch.autograd.Function``s
+whose backward is the JAX package's ``custom_vjp`` backward: the vjp of the
+plain formulation.
 """
 
 from nerve_tpu_torch.ops.pixel_shuffle import (  # noqa: F401

@@ -33,6 +33,15 @@ list without a concatenation); anything else (the head's 3 channels, the
 flow head's 81) is first copied into one buffer zero-padded to a multiple
 of 8 channels. The float32 dense layer takes float32 HWIO weights and one
 tensor (a list is concatenated first).
+
+Under autograd the chain is a ``torch.autograd.Function`` (``_ConvChain``),
+the port of ``conv_chain_fused``'s ``custom_vjp``: the forward is the
+dispatch above (the kernels on the card), the backward the vjp of
+``conv_chain_plain`` recomputed from the saved inputs and parameters, as
+``_cc_bwd`` takes the vjp of ``_chain_xla``; a list input gets one gradient
+per tensor. Where nothing needs a gradient the call is the serving one. The
+plain version's relu is ``torch.maximum(y, 0)``, ``jnp.maximum``'s
+gradient of ½ at a tie (``torch.relu`` gives 0 there).
 """
 
 from __future__ import annotations
@@ -121,7 +130,7 @@ def conv_chain_plain(x, params: Sequence[Entry]) -> torch.Tensor:
             y = F.conv2d(h.to(cdt), wk, padding=w.shape[0] // 2).to(dt)
         y = y.float() + bias.float()[:, None, None]
         if act == "relu":
-            y = torch.relu(y)
+            y = torch.maximum(y, y.new_zeros(()))
         h = y.to(dt)
     return h.permute(0, 2, 3, 1).contiguous()
 
@@ -299,6 +308,32 @@ def dwconv3_launch_record(x: torch.Tensor) -> dict:
     return {"route": route, **dict(zip(DW_LAUNCH_RECORD, rec))}
 
 
+class _ConvChain(torch.autograd.Function):
+    """The chain on ``n_in`` input tensors, then its kernels, then biases:
+    forward by dispatch, backward the vjp of ``conv_chain_plain``."""
+
+    @staticmethod
+    def forward(ctx, acts, n_in, *tensors):
+        ctx.acts, ctx.n_in = acts, n_in
+        ctx.save_for_backward(*tensors)
+        params = _entries(tensors[n_in:], acts)
+        return _chain_forward(list(tensors[:n_in]), params, _layer_specs(params))
+
+    @staticmethod
+    def backward(ctx, g):
+        acts, n_in = ctx.acts, ctx.n_in
+        grads = dispatch.recompute_vjp(
+            lambda *t: conv_chain_plain(list(t[:n_in]), _entries(t[n_in:], acts)),
+            ctx.saved_tensors, ctx.needs_input_grad[2:], g)
+        return (None, None, *grads)
+
+
+def _entries(wbs: Sequence[torch.Tensor], acts: Sequence[str]) -> list:
+    """(kernels…, biases…) and acts → ``[(kernel, bias, act), …]``."""
+    n = len(acts)
+    return list(zip(wbs[:n], wbs[n:], acts))
+
+
 def conv_chain_apply(x, params: Sequence[Entry]) -> torch.Tensor:
     """Run a conv(+relu) chain: (B, H, W, Cin) or a list → (B, H, W, Cout)."""
     xs = list(x) if isinstance(x, (list, tuple)) else [x]
@@ -308,6 +343,13 @@ def conv_chain_apply(x, params: Sequence[Entry]) -> torch.Tensor:
     if sum(t.shape[-1] for t in xs) != specs[0][1]:
         raise ValueError(f"conv_chain input has {sum(t.shape[-1] for t in xs)} channels, "
                          f"the first layer takes {specs[0][1]}")
+    if dispatch.needs_grad(*xs, *(p for w, b, _ in params for p in (w, b))):
+        return _ConvChain.apply(tuple(a for *_wb, a in params), len(xs), *xs,
+                                *(w for w, _b, _a in params), *(b for _w, b, _a in params))
+    return _chain_forward(xs, params, specs)
+
+
+def _chain_forward(xs, params: Sequence[Entry], specs) -> torch.Tensor:
     if not dispatch.use_kernel(*xs, *(p for w, b, _ in params for p in (w, b))):
         return conv_chain_plain(xs, params)
     h = xs  # the first layer reads a list input in place

@@ -16,6 +16,13 @@ The kernel reads its inputs by TMA, whose tensor maps need a pixel stride
 that is a multiple of 16 bytes: ``kernel_inputs`` pads other channel counts
 with zero channels (to a multiple of 8 in bfloat16, 4 in float32), which
 add nothing to the sums, and the kernel divides by the true C.
+
+Under autograd the volume is a ``torch.autograd.Function``
+(``_Correlation``), the port of ``_correlation_tpu``'s ``custom_vjp``: the
+forward is the dispatch above, the backward the vjp of
+``correlation_plain`` (each product rounded to the input dtype) recomputed
+from the saved f1 and f2, as ``_corr_bwd`` takes the vjp of
+``_correlation_xla``.
 """
 
 from __future__ import annotations
@@ -83,7 +90,29 @@ def correlation_volume(f1: torch.Tensor, f2: torch.Tensor, max_displacement: int
     if f1.shape != f2.shape or f1.dtype != f2.dtype:
         raise ValueError(f"f1 {tuple(f1.shape)} {f1.dtype} and f2 "
                          f"{tuple(f2.shape)} {f2.dtype} differ")
-    d = max_displacement
+    if dispatch.needs_grad(f1, f2):
+        return _Correlation.apply(max_displacement, f1, f2)
+    return _volume(f1, f2, max_displacement)
+
+
+class _Correlation(torch.autograd.Function):
+    """Forward by dispatch, backward the vjp of ``correlation_plain``."""
+
+    @staticmethod
+    def forward(ctx, d, f1, f2):
+        ctx.d = d
+        ctx.save_for_backward(f1, f2)
+        return _volume(f1, f2, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        d = ctx.d
+        grads = dispatch.recompute_vjp(lambda a, b: correlation_plain(a, b, d),
+                                       ctx.saved_tensors, ctx.needs_input_grad[1:], g)
+        return (None, *grads)
+
+
+def _volume(f1: torch.Tensor, f2: torch.Tensor, d: int) -> torch.Tensor:
     if not dispatch.use_kernel(f1, f2):
         return correlation_plain(f1, f2, d)
     f1k, f2k, c = kernel_inputs(f1, f2, d)

@@ -16,12 +16,23 @@ the RDB fusions' launches (one per block, beside ``rdb`` or ``rdb_int8``;
 ``packs`` counts the int8 states (a chain, an RDB stack) packed into the
 int8 layer kernel's weight image: host work, no launch. A model packs each
 of its int8 states once and keeps the packs, so a served frame packs none.
+
+Under autograd (``needs_grad``) a kernel op runs as a
+``torch.autograd.Function``: its forward is the dispatch above, its
+backward ``recompute_vjp``, the vjp of the op's plain version recomputed
+from the saved inputs, as the JAX package's ``custom_vjp`` backward is the
+vjp of its XLA formulation. No kernel has a backward of its own, since no
+Pallas kernel had one; the recompute runs inside a profiler range named
+``RECOMPUTE_RANGE``.
 """
 
 from __future__ import annotations
 
+from typing import Callable, List, Optional, Sequence
+
 import torch
 
+RECOMPUTE_RANGE = "nt.recompute"
 KERNELS = ("d2s_packed", "correlation", "conv_chain", "conv_chain_dw3", "rdb",
            "conv_chain_int8", "rdb_int8", "planar_chain", "rdb_int8_int32_taps",
            "rdb_taps", "d2s_packed_planar", "probe", "quantize_i8", "rdb_lff", "rdb_lff_i8")
@@ -52,3 +63,24 @@ def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
     packs["int8"] = 0
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """True where autograd records this call: grad mode is on (never under
+    ``torch.no_grad`` or ``torch.inference_mode``) and a tensor requires its
+    gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def recompute_vjp(plain: Callable, inputs: Sequence[torch.Tensor], needs: Sequence[bool],
+                  grad_out: torch.Tensor) -> List[Optional[torch.Tensor]]:
+    """The vjp of ``plain(*inputs)`` at ``grad_out``: ``plain`` recomputed
+    under autograd from detached copies of ``inputs``, one gradient per input
+    (None where ``needs`` is False)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        with torch.profiler.record_function(RECOMPUTE_RANGE):
+            out = plain(*leaves)
+        wanted = [t for t, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out, allow_unused=True))
+    return [next(grads) if n else None for n in needs]

@@ -19,6 +19,14 @@ into their channel slots, and ``nt_rdb_lff`` (``csrc/rdb.cu``) fuses, adds
 the residual and writes the next block's input into channels [0, C) of the
 other buffer (the last block writes a (B, H, W, C) tensor). A CPU tensor
 runs ``rdb_plain``.
+
+Under autograd the stack is one ``torch.autograd.Function`` (``_RDBChain``),
+the port of ``rdb_chain_fused`` (and of ``rdb_fused`` for one block): the
+forward is the dispatch above, the backward the vjp of ``rdb_chain_plain``
+(``rdb_plain`` block after block) recomputed from the saved stack input and
+parameters only, as ``_chain_bwd`` takes the vjp of ``_rdb_chain_xla``. The plain dense
+layers' relu is ``torch.maximum(y, 0)``, ``jnp.maximum``'s gradient of ½ at
+a tie.
 """
 
 from __future__ import annotations
@@ -65,7 +73,7 @@ def rdb_plain(x: torch.Tensor, params: Sequence[torch.Tensor]) -> torch.Tensor:
         inp = feats[0] if len(feats) == 1 else torch.cat(feats, dim=1)
         y = F.conv2d(inp, wk.to(dt).permute(3, 2, 0, 1), padding=1)
         y = y.float() + bk.float()[:, None, None]
-        feats.append(torch.relu(y).to(dt))
+        feats.append(torch.maximum(y, y.new_zeros(())).to(dt))
     return lff_plain(torch.cat(feats, dim=1).permute(0, 2, 3, 1), params[-2], params[-1])
 
 
@@ -158,10 +166,45 @@ def rdb_chain_plain(x: torch.Tensor, params_list) -> torch.Tensor:
     return x
 
 
+class _RDBChain(torch.autograd.Function):
+    """The stack on ``x`` and its blocks' parameters, flattened (``sizes``:
+    parameters a block): forward by dispatch, backward the vjp of
+    ``rdb_chain_plain``."""
+
+    @staticmethod
+    def forward(ctx, sizes, x, *flat):
+        ctx.sizes = sizes
+        ctx.save_for_backward(x, *flat)
+        return _rdb_chain_forward(x, _blocks(flat, sizes))
+
+    @staticmethod
+    def backward(ctx, g):
+        sizes = ctx.sizes
+        grads = dispatch.recompute_vjp(
+            lambda x, *flat: rdb_chain_plain(x, _blocks(flat, sizes)),
+            ctx.saved_tensors, ctx.needs_input_grad[1:], g)
+        return (None, *grads)
+
+
+def _blocks(flat: Sequence[torch.Tensor], sizes: Sequence[int]) -> list:
+    out, i = [], 0
+    for n in sizes:
+        out.append(list(flat[i:i + n]))
+        i += n
+    return out
+
+
+def _rdb_chain_forward(x: torch.Tensor, params_list) -> torch.Tensor:
+    if not dispatch.use_kernel(x, *(p for params in params_list for p in params)):
+        return rdb_chain_plain(x, params_list)
+    return _rdb_chain_kernel(x, params_list)
+
+
 def rdb_chain_apply(x: torch.Tensor, params_list) -> torch.Tensor:
     """The RDB stack: the blocks of ``params_list`` in order."""
     if not params_list:
         return x
-    if not dispatch.use_kernel(x, *(p for params in params_list for p in params)):
-        return rdb_chain_plain(x, params_list)
-    return _rdb_chain_kernel(x, params_list)
+    flat = [p for params in params_list for p in params]
+    if dispatch.needs_grad(x, *flat):
+        return _RDBChain.apply(tuple(len(params) for params in params_list), x, *flat)
+    return _rdb_chain_forward(x, params_list)

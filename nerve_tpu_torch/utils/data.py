@@ -1,0 +1,126 @@
+"""Synthetic SR data (counterpart of ``nerve_tpu/utils/data.py``).
+
+HR frames are smooth band-limited random images with a sharp-edge
+component, LR their box decimation (area average), so SR training has
+something to learn that bicubic upsampling cannot recover. Randomness comes
+from an explicit ``torch.Generator`` (the JAX package's PRNG bits are not
+reproduced); the datasets are numpy arrays on the host, NHWC, in [0, 1].
+``batches`` is numpy and shuffles as the JAX package's does for the same
+``np.random.Generator``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel, a = -0.5 (``jax.image.resize``'s "cubic")."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _cubic_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_in, n_out) float32 weights of ``jax.image.resize(..., "cubic")``
+    along one axis (an upscale: the kernel is not widened): half-pixel
+    centres, each output's taps normalised to sum 1 over the input."""
+    inv_scale = 1.0 / (n_out / n_in)
+    sample_f = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    w = _keys_cubic((sample_f[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs())
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def resize_cubic(x: torch.Tensor, size: int) -> torch.Tensor:
+    """(N, r, r, C) float32 → (N, size, size, C), ``size`` ≥ r: the cubic
+    resize of ``jax.image.resize(x, (N, size, size, C), "cubic")``."""
+    w = _cubic_weights(x.shape[1], size).to(x.device)
+    return torch.einsum("nhwc,hH,wW->nHWc", x, w, w)
+
+
+def smooth_random_images(generator: torch.Generator, n: int, size: int, channels: int = 3,
+                         octaves: int = 4) -> torch.Tensor:
+    """Multi-octave random images in [0, 1]: coarse structure down to
+    half-resolution texture, each octave a cubic upscale of Gaussian noise
+    weighted 0.55^o, then each image normalised to [0, 1]."""
+    imgs = torch.zeros((n, size, size, channels), dtype=torch.float32)
+    for o in range(octaves):
+        res = max(2, size >> (octaves - o))
+        noise = torch.randn((n, res, res, channels), generator=generator)
+        imgs = imgs + resize_cubic(noise, size) * (0.55**o)
+    lo = imgs.amin(dim=(1, 2, 3), keepdim=True)
+    hi = imgs.amax(dim=(1, 2, 3), keepdim=True)
+    return (imgs - lo) / torch.clamp(hi - lo, min=1e-6)
+
+
+def box_decimate(hr: torch.Tensor, scale: int) -> torch.Tensor:
+    """(..., s·h, s·w, C) → (..., h, w, C): the mean of each s × s block,
+    summed in float64 and rounded once (exact in float32), clipped to [0, 1]."""
+    *lead, hh, ww, c = hr.shape
+    blocks = hr.double().reshape(*lead, hh // scale, scale, ww // scale, scale, c)
+    return blocks.mean(dim=(-4, -2)).clamp(0.0, 1.0).float()
+
+
+def make_sr_dataset(generator: torch.Generator, num_samples: int, lr_size: int = 64,
+                    scale: int = 2, channels: int = 3) -> Dict[str, np.ndarray]:
+    """{'lr': (N, s, s, C), 'hr': (N, s·scale, s·scale, C)} in [0, 1]."""
+    hr_size = lr_size * scale
+    base = smooth_random_images(generator, num_samples, hr_size, channels)
+    # A sigmoid-thresholded smooth field: structured edges above the LR
+    # Nyquist rate, where learned SR beats interpolation.
+    edges = torch.sigmoid((smooth_random_images(generator, num_samples, hr_size, channels)
+                           - 0.5) * 24.0)
+    hr = torch.clamp(0.55 * base + 0.45 * edges, 0.0, 1.0)
+    return {"lr": box_decimate(hr, scale).numpy(), "hr": hr.numpy()}
+
+
+def make_video_sr_dataset(generator: torch.Generator, num_samples: int, lr_size: int = 64,
+                          scale: int = 2, num_frames: int = 3, max_shift: int = 3,
+                          channels: int = 3) -> Dict[str, np.ndarray]:
+    """{'lr_win': (N, T, s, s, C), 'hr': (N, s·scale, s·scale, C)} with
+    inter-frame motion: each sample pans over a larger HR canvas at an
+    integer velocity in [-max_shift, max_shift] HR pixels a frame, frame t
+    cropped at ``margin + (t - T//2)·v`` and box-decimated; ``hr`` is the
+    centre frame."""
+    hr_size = lr_size * scale
+    t_half = num_frames // 2
+    margin = max_shift * t_half
+    canvas_size = hr_size + 2 * margin
+    canvas = torch.from_numpy(make_sr_dataset(generator, num_samples, canvas_size // scale,
+                                              scale, channels=channels)["hr"])
+    vel = torch.randint(-max_shift, max_shift + 1, (num_samples, 2), generator=generator)
+    frames = []
+    for t in range(num_frames):
+        off = margin + vel * (t - t_half)
+        frames.append(torch.stack([canvas[i, oy:oy + hr_size, ox:ox + hr_size]
+                                   for i, (oy, ox) in enumerate(off.tolist())]))
+    frames_hr = torch.stack(frames, dim=1)  # (N, T, hr, hr, C)
+    return {"lr_win": box_decimate(frames_hr, scale).numpy(),
+            "hr": frames_hr[:, t_half].contiguous().numpy()}
+
+
+def batches(data: Dict[str, np.ndarray], batch_size: int, *,
+            rng: Optional[np.random.Generator] = None,
+            drop_remainder: bool = True) -> Iterator[Dict[str, np.ndarray]]:
+    """Shuffled fixed-shape minibatches over a dict-of-arrays dataset."""
+    n = len(next(iter(data.values())))
+    idx = np.arange(n)
+    if rng is not None:
+        rng.shuffle(idx)
+    end = (n // batch_size) * batch_size if drop_remainder else n
+    for start in range(0, end, batch_size):
+        sel = idx[start:start + batch_size]
+        yield {k: v[sel] for k, v in data.items()}
+
+
+def expand_temporal(lr: torch.Tensor, num_frames: int) -> torch.Tensor:
+    """(B, H, W, C) → (B, T, H, W, C) by repetition (a view)."""
+    return lr[:, None].expand(lr.shape[0], num_frames, *lr.shape[1:])

@@ -38,6 +38,12 @@ routes, and at 64 channels or fewer launches what it did before slices.
 The planar chain keeps a non-finite input value where the plain version
 does: the same values are NaN, +Inf and -Inf, the finite ones at the chain's
 level, also behind padded channels where a relu turns an -Inf into 0.
+Training: each kernel op under autograd (the conv chain on a list of three
+frames, the RDB stack, the correlation, the warp) against plain autograd
+through its plain version, output and gradients at the levels above (the
+warp, whose plain backward scatters in bfloat16, at the chain's), at a
+small and at the training shape; a small
+flagship's launches per train step and a bit-exact resume.
 """
 
 import importlib
@@ -1013,3 +1019,64 @@ def test_engine_small_matches_plain(cuda):
     # uint8 frames divide by 255 on the card as on the CPU, bit for bit.
     every = torch.arange(256, dtype=torch.uint8)
     assert torch.equal(api.from_uint8(every.to(cuda)).cpu(), every.float() / 255)
+
+
+# Training: each kernel op under autograd (the kernels forward, the vjp of
+# the plain version backward) against plain autograd through its plain
+# version; limits (float32, bfloat16) relative to max|plain|, chip_smoke.py's.
+TRAIN_LIMITS = {"conv_chain": (1e-4, 2.4e-2), "rdb": (1e-4, 1.56e-2),
+                "correlation": (1e-5, 1e-2), "warp": (1e-5, 2.4e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", [True, False], ids=["small", "training_shape"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(TRAIN_LIMITS))
+def test_train_grads(cuda, name, dtype, small):
+    """The attention chain on three frames, an RDB stack (4 blocks small, 8
+    at the training shape), the correlation (d = 4) and the warp, at a
+    ragged 2 × 13 × 17 × 16 and at batch 16, 64 × 64 × 64 (``diag.train``):
+    output and every gradient; the kernel route launches its kernels, the
+    backward none."""
+    from nerve_tpu_torch.diag import train as diag_train
+
+    kernel, plain, leaves, g = diag_train.grad_cases(cuda, dtype, small)[name]
+    dispatch.reset_launches()
+    out = kernel(*leaves)
+    forward = dict(dispatch.launches)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert dispatch.launches == forward  # the backward recomputes the plain version
+    if name != "warp":
+        assert sum(forward.values()) > 0
+    ref = plain(*leaves)
+    ref_grads = torch.autograd.grad(ref, leaves, g)
+    limit = TRAIN_LIMITS[name][dtype == torch.bfloat16]
+    for got, want in [(out, ref), *zip(grads, ref_grads)]:
+        d = (got.float() - want.float()).abs().max().item()
+        assert d <= limit * want.float().abs().max().item(), (name, d)
+
+
+@pytest.mark.cuda
+def test_train_step_launches_and_resume(cuda, tmp_path):
+    """A small flagship (16 features, 2 RDBs) in bfloat16, batch 2 at 16 ×
+    16: each step's forward launches 5 chains' layers (10), 2 ``rdb``, 2
+    ``rdb_lff`` and a ``correlation``; a restored trainer's next loss equals
+    the uninterrupted run's."""
+    from nerve_tpu_torch.diag import train as diag_train
+    from nerve_tpu_torch.utils.checkpoint import CheckpointManager
+
+    model = diag_train.train_model(cuda, 0, features=16, blocks=2)
+    batches = diag_train.train_batches(cuda, 3, lr_size=16, batch=2)
+    state, step = diag_train.step_fn(model, steps=3)
+    for batch in batches[:2]:
+        dispatch.reset_launches()
+        step(state, *batch)
+        assert {k: v for k, v in dispatch.launches.items() if v} == {
+            "conv_chain": 10, "rdb": 2, "rdb_lff": 2, "correlation": 1}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(state.step, state.state_dict())
+    loss = step(state, *batches[2])[1]["loss"]
+    fresh, fstep = diag_train.step_fn(diag_train.train_model(cuda, 5, features=16, blocks=2),
+                                      steps=3)
+    fresh.load_state_dict(mgr.restore(fresh.state_dict()))
+    assert torch.equal(fstep(fresh, *batches[2])[1]["loss"], loss)
