@@ -153,6 +153,33 @@ Phases, each of which raises on failure and prints its wall time:
    train and 16 val samples, 64/8) as a subprocess: exit 0, its last line
    ``{"best_psnr", "final_psnr"}``.
 
+10. Continual: the continual-learning pillar (``nerve_tpu_torch.continual``).
+   (a) Each kernel op's Hessian-vector product ∂/∂(inputs, g) ⟨∂⟨op, g⟩/∂inputs,
+   v⟩ (``create_graph=True``; ``diag.continual.compare_hvp``) as the model
+   calls the op and through its plain version, in float32 and bfloat16 at
+   ``TRAIN_LIMITS``, at the small shapes of ``diag.train.grad_cases`` and at
+   the continual experiment's widths (16 features, 2 RDBs of growth 32, LR
+   32², batch 16), where the first-order gradients and the forward are held
+   too: every second derivative the plain version has must be there and
+   nonzero. (b) The continual library at the flagship's width (64 features,
+   8 RDBs, window 3, LR 64², batch 4, float32, BatchNorm held;
+   ``diag.continual.library_run``) on the kernel route and on the plain
+   route (``plain_ops()``): EWC's batch Fisher (2 batches), per-sample Fisher
+   (1 batch), penalty and a penalised Adam step, an SI step and its
+   importances, a replay step, a second-order MAML step and a first-order
+   one (2 tasks × 1 inner step), a Reptile step and
+   ``ContinualDistillation.compute_loss``: each loss, Fisher, importance and
+   meta-gradient within ``CONTINUAL_L2`` in relative L2 norm, the
+   parameters after each step at ``TRAIN_PARAM_REL``/``TRAIN_PARAM_L2``; the
+   second-order step launches ``conv_chain``, ``rdb``, ``rdb_lff`` and
+   ``correlation`` (the plain route nothing), and its meta-gradient differs
+   from the first-order one by more than ``CONTINUAL_L2`` (the size of a
+   dropped second-order term); ms per meta step and per Fisher pass, peak
+   memory. (c) ``python -m nerve_tpu_torch.train_continual`` once per
+   strategy (``ewc``, ``replay``, ``si``, ``maml``, ``reptile``; 2 tasks, 1
+   epoch, 16 samples, batch 8), the five as parallel subprocesses: exit 0,
+   finite PSNRs in the last line.
+
 ``--profile DIR`` profiles two steps of each slice, and two bf16 engine
 calls in "full" and in "recovery_only" mode (``diag.conv.profile``:
 idle share, kernels by time, the RDB fusions', dense layers' and ATen
@@ -189,6 +216,7 @@ import torch.nn.functional as F
 
 from nerve_tpu_torch import ops
 from nerve_tpu_torch.diag import _common
+from nerve_tpu_torch.diag import continual as diag_continual
 from nerve_tpu_torch.diag import correlation as diag_corr
 from nerve_tpu_torch.diag import d2s as diag_d2s
 from nerve_tpu_torch.diag import probe
@@ -1570,6 +1598,157 @@ def run_train_phase(dev, card: str, profile_dir=None) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Continual learning (phase 10): second derivatives through the kernel ops,
+# the continual library at the flagship's width, the continual CLI
+# --------------------------------------------------------------------------- #
+# The Hessian-vector products are held at TRAIN_LIMITS: the second
+# derivatives of both routes are the plain version's at the same inputs,
+# only the forward (and the warp's own backward) differ. The experiment's
+# widths: B, H, W, C, RDB blocks, growth (a 176-channel block concatenation).
+CONTINUAL_DIMS = {"small": None, "experiment": (16, 32, 32, 16, 2, 32)}
+# The continual library, kernel route vs plain route, relative L2 norm of
+# each loss, Fisher, importance and meta-gradient. float32 with TF32 off:
+# the two forwards differ by summation order (~1e-6 of each output), which
+# the Fisher squares and the meta-gradient carries through two
+# differentiations (measured ≤ 1.5e-7 on an H100); a wrong tap, block or
+# dropped second-order term moves these by 1e-2 or more (the second-order
+# term alone is printed: 0.17 at 64/8, inner rate 0.01).
+CONTINUAL_L2 = 1e-3
+CONTINUAL_LAUNCHES = ("conv_chain", "rdb", "rdb_lff", "correlation")
+CONTINUAL_STRATEGIES = ("ewc", "replay", "si", "maml", "reptile")
+
+
+def _worst(stats):
+    return max(range(len(stats)),
+               key=lambda i: stats[i]["max_abs"] / max(stats[i]["scale"], 1e-30))
+
+
+def check_continual_hvps(dev) -> None:
+    """Phase 10a: second derivatives through each kernel op."""
+    for label, dims in CONTINUAL_DIMS.items():
+        for dt in (torch.float32, torch.bfloat16):
+            cases = diag_train.grad_cases(dev, dt, small=dims is None, dims=dims)
+            for name, (kernel, plain, leaves, g) in cases.items():
+                limit = TRAIN_LIMITS[name][dt == torch.bfloat16]
+                checks = []
+                if dims is not None:  # this width's forward and gradients too
+                    r = diag_train.compare_grads(kernel, plain, leaves, g)
+                    checks += [("output", r["forward"])] + [(f"grad {i}", st) for i, st
+                                                            in enumerate(r["grads"])]
+                dispatch.reset_launches()
+                stats = diag_continual.compare_hvp(kernel, plain, leaves, g)
+                launched = {k: v for k, v in dispatch.launches.items() if v}
+                checks += [(f"second derivative {i}", st) for i, st in enumerate(stats)]
+                w = _worst(stats)
+                print(f"continual hvp {name} {label} {str(dt)[6:]}: worst of {len(stats)} "
+                      f"second derivatives: {w} max|d| {stats[w]['max_abs']:.3e} mean "
+                      f"{stats[w]['mean_abs']:.3e} (max|plain| {stats[w]['scale']:.3e}); "
+                      f"limit {limit} of max|plain|; launches {launched}", flush=True)
+                for i, st in enumerate(stats):
+                    if st["mismatch"]:
+                        raise AssertionError(f"continual {name} {label} {dt}: second "
+                                             f"derivative {i} missing on one route")
+                for what, st in checks:
+                    if not st["max_abs"] <= limit * st["scale"]:
+                        raise AssertionError(f"continual {name} {label} {dt}: {what} differs "
+                                             "from the plain version's")
+                if name != "warp" and not launched:
+                    raise AssertionError(f"continual {name}: the kernel route launched no kernel")
+
+
+def _param_rule(name, got, want, p0) -> None:
+    """Phase 9's rule for the parameters after a step, kernel vs plain."""
+    pk, pp, base = (diag_continual.flat(x) for x in (got, want, p0))
+    change, d = pk - base, (pk - pp).abs()
+    dmax, cmax = d.max().item(), change.abs().max().item()
+    dl2, cl2 = d.norm().item(), change.norm().item()
+    print(f"continual {name}: max|d| {dmax:.3e} = {dmax / cmax:.3e} of the largest change "
+          f"(limit {TRAIN_PARAM_REL}); L2 {dl2:.3e} = {dl2 / cl2:.3e} of the change's "
+          f"(limit {TRAIN_PARAM_L2})", flush=True)
+    if not (cmax > 0 and dmax <= TRAIN_PARAM_REL * cmax and dl2 <= TRAIN_PARAM_L2 * cl2):
+        raise AssertionError(f"continual {name}: the kernel run's parameters differ from the "
+                             "plain run's")
+
+
+def check_continual_library(dev, card: str) -> dict:
+    """Phase 10b; returns the second-order meta step's launches."""
+    model = diag_continual.continual_model(dev)
+    batches = diag_continual.continual_batches(dev)
+    kern = diag_continual.library_run(model, batches)
+    with plain_ops():
+        plain = diag_continual.library_run(model, batches)
+    launches = kern["maml launches"]
+    print(f"continual second-order MAML step launches {launches}; plain route "
+          f"{plain['maml launches']}", flush=True)
+    if plain["maml launches"] or not all(launches.get(k) for k in CONTINUAL_LAUNCHES):
+        raise AssertionError(f"continual meta step launches {launches}, plain "
+                             f"{plain['maml launches']}: expected {CONTINUAL_LAUNCHES}")
+    for key, got in kern.items():
+        if key in ("maml launches", "p0"):
+            continue
+        if key.endswith("params"):
+            _param_rule(key, got, plain[key], kern["p0"])
+            continue
+        r = diag_continual.rel_l2(got, plain[key])
+        print(f"continual {key}: kernel vs plain relative L2 {r:.3e} (limit {CONTINUAL_L2})",
+              flush=True)
+        if not r <= CONTINUAL_L2:
+            raise AssertionError(f"continual {key}: the kernel route differs from the plain")
+    second = diag_continual.rel_l2(kern["fomaml meta-gradient"], kern["maml meta-gradient"])
+    print(f"continual: the first-order meta-gradient differs from the second-order one by "
+          f"{second:.3e} in relative L2 (the size of a dropped second-order term; limit above "
+          f"{CONTINUAL_L2})", flush=True)
+    if not second > CONTINUAL_L2:
+        raise AssertionError("continual: the second-order term is below the check's bound")
+    t = diag_continual.library_timing(model, batches)
+    print(f"continual 64/8 float32 LR {diag_continual.LR_SIZE}^2 batch {diag_continual.BATCH}, "
+          f"2 tasks x 1 inner step: second-order meta step {t['maml_ms']:.2f} ms, first-order "
+          f"{t['fomaml_ms']:.2f} ms; Fisher pass over one batch {t['fisher_ms']:.2f} ms, "
+          f"per-sample {t['per_sample_fisher_ms']:.2f} ms (medians of 3 after 1); peak "
+          f"{t['maml_peak_bytes'] / 2**30:.2f} GiB allocated in the second-order step; on "
+          f"{card}", flush=True)
+    return launches
+
+
+def check_continual_cli(card: str) -> None:
+    """Phase 10c: ``python -m nerve_tpu_torch.train_continual`` per strategy,
+    the five at once."""
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for s in CONTINUAL_STRATEGIES:
+            procs[s] = subprocess.Popen(
+                [sys.executable, "-m", "nerve_tpu_torch.train_continual", "--strategy", s,
+                 "--num-tasks", "2", "--epochs-per-task", "1", "--samples-per-task", "16",
+                 "--batch-size", "8"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=env)
+        for s, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"train_continual --strategy {s} failed: {err[-2000:]}")
+            scores = json.loads(out.strip().splitlines()[-1])["final_psnr_per_task"]
+            print(f"train_continual --strategy {s}: {json.dumps(scores)}", flush=True)
+            if len(scores) != 2 or not all(math.isfinite(v) for v in scores.values()):
+                raise AssertionError(f"train_continual --strategy {s}: PSNRs {scores}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"train_continual CLI, five strategies in parallel: "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+
+
+def run_continual_phase(dev, card: str) -> dict:
+    """Phase 10; returns the launches of one second-order meta step."""
+    check_continual_hvps(dev)
+    launches = check_continual_library(dev, card)
+    check_continual_cli(card)
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -1629,6 +1808,8 @@ def main() -> int:
         run_engine_phase(dev, card)
     with phase("train"):
         run_train_phase(dev, card, args.profile)
+    with phase("continual"):
+        run_continual_phase(dev, card)
     if args.profile:
         with phase("profile"):
             profile({"bf16": streamer(bf16_model), "int8": streamer(int8_model),

@@ -61,11 +61,15 @@ def _leaves(dev, dt, *tensors):
     return [t.to(dev, dt).requires_grad_(True) for t in tensors]
 
 
-def grad_cases(dev, dt, small: bool = False, seed: int = 0) -> dict:
+def grad_cases(dev, dt, small: bool = False, seed: int = 0, dims=None) -> dict:
     """name → (kernel route, plain route, leaf inputs, upstream gradient):
-    each route maps the leaves to the op's output."""
+    each route maps the leaves to the op's output. ``dims`` (B, H, W, C,
+    RDB blocks, growth) overrides the shapes that ``small`` picks."""
     g = torch.Generator().manual_seed(seed)
     b, h, w, c = SMALL if small else (BATCH, LR_SIZE, LR_SIZE, FEATURES)
+    blocks, growth = (4, 8) if small else (BLOCKS, 32)
+    if dims is not None:
+        b, h, w, c, blocks, growth = dims
     cases = {}
     # The attention chain: three frames as a list, 3c → c → c → 3.
     frames = _leaves(dev, dt, *(_randn(g, (b, h, w, c)) for _ in range(3)))
@@ -80,9 +84,8 @@ def grad_cases(dev, dt, small: bool = False, seed: int = 0) -> dict:
     cases["conv_chain"] = (lambda *t: ops.conv_chain_apply(list(t[:3]), entries(t)),
                            lambda *t: conv_chain.conv_chain_plain(list(t[:3]), entries(t)),
                            frames + wb, _randn(g, (b, h, w, 3)).to(dev, dt))
-    # The RDB stack: 8 blocks of 5 dense layers, growth 32 (4 blocks small).
-    blocks = 4 if small else BLOCKS
-    plist = [_common.rdb_params(g, c, "cpu", growth=8 if small else 32, bias_std=0.05)
+    # The RDB stack: 8 blocks of 5 dense layers, growth 32 (small: 4, growth 8).
+    plist = [_common.rdb_params(g, c, "cpu", growth=growth, bias_std=0.05)
              for _ in range(blocks)]
     sizes = [len(p) for p in plist]
     leaves = _leaves(dev, dt, _randn(g, (b, h, w, c)), *(p for params in plist for p in params))
@@ -202,6 +205,16 @@ def _part(kernel, launch, ranges, main_tid) -> str:
     return "other"
 
 
+def busy_us(kernels) -> float:
+    """µs in which at least one of the trace's kernel events runs."""
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
 def profile_split(model, batch, out_dir: Path, steps: int = 2) -> dict:
     """Device ms per step of each part of the train step (``_part``), busy
     time and idle share, over ``steps`` profiled steps after 3 untimed."""
@@ -234,13 +247,7 @@ def profile_split(model, batch, out_dir: Path, steps: int = 2) -> dict:
     for k in kernels:
         part = _part(k, launches.get(k.get("args", {}).get("correlation")), ranges, main_tid)
         split[part] = split.get(part, 0.0) + k["dur"] / 1e3 / steps
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
-    busy, end = 0.0, -math.inf
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy_ms = busy / 1e3 / steps
+    busy_ms = busy_us(kernels) / 1e3 / steps
     result = {"ms_per_step": split, "busy_ms_per_step": busy_ms,
               "wall_ms_per_step": wall / steps, "idle_share": 1 - busy_ms / (wall / steps),
               "kernels_per_step": len(kernels) / steps,

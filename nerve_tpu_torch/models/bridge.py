@@ -17,7 +17,8 @@ same (the per-channel factors tiled over the taps), and serving it takes
 ``flax_variables`` is the reverse for a float model: its parameters and
 BatchNorm statistics as a flax-shaped ``{"params", "batch_stats"}`` tree of
 numpy arrays (how the tests hold a trained port against the JAX package by
-flax path).
+flax path). ``params_to_flax`` does the same for a dict of tensors by
+parameter name, as the continual-learning rules keep them.
 """
 
 from __future__ import annotations
@@ -105,6 +106,13 @@ def flax_variables(module: nn.Module) -> Dict[str, Dict[str, Any]]:
     params = {k: p.detach().float().cpu().numpy() for k, p in module.named_parameters()}
     stats = {k: b.detach().float().cpu().numpy() for k, b in batch_stats(module).items()}
     return {"params": _nest(params), "batch_stats": _nest(stats)}
+
+
+def params_to_flax(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """A dict of tensors by ``named_parameters`` name (the continual rules'
+    parameters, Fishers, importances) as a flax-shaped tree of float32 numpy
+    arrays."""
+    return _nest({k: v.detach().float().cpu().numpy() for k, v in params.items()})
 
 
 def sr_from_flax(variables_numpy: Mapping[str, Any], device="cuda",

@@ -29,7 +29,9 @@ under autograd, the feature body's three depthwise-separable blocks one
 after another with live BatchNorm (as the reference's ``train=True``), and
 the kernel ops as ``torch.autograd.Function``s (kernels forward, the vjp of
 their plain versions backward; ``ops.dispatch``). Its eval forward runs
-under ``torch.inference_mode``. The epilogue's clamp is
+under ``torch.inference_mode``, or under autograd with the BatchNorm
+statistics held where the caller passes ``differentiable=True`` (the
+losses of ``nerve_tpu_torch.continual``). The epilogue's clamp is
 ``minimum(maximum(·, 0), 1)``, ``jnp.clip``'s gradient of ½ at a bound.
 
 The models are built on the card unless the caller passes ``device="cpu"``.
@@ -328,13 +330,17 @@ class SuperResolutionNet(nn.Module):
         return self.fuse_from_features(aligned, center_feat, center_lr, output_layout)
 
     def forward(self, lr_frames: torch.Tensor, output_layout: str = "nhwc",
-                return_intermediate: bool = False):
+                return_intermediate: bool = False, differentiable: bool = False):
         """(B, T, H, W, C) window → SR of its centre frame. With
         ``return_intermediate``, (SR, {"features": (B, T, H, W, F),
         "aligned": (B, T, H, W, F), "aggregated": (B, H, W, F)}), the
         reference's debug outputs. Under autograd in training mode, under
-        ``torch.inference_mode`` in eval mode."""
-        if self.training:
+        ``torch.inference_mode`` in eval mode. ``differentiable`` runs the
+        eval forward under autograd: the reference's ``train=False`` under
+        ``jax.grad`` (BatchNorm folded from the running statistics, which
+        stay as they are; its scale and bias get gradients), as the
+        continual-learning losses call it."""
+        if self.training or differentiable:
             return self._forward(lr_frames, output_layout, return_intermediate)
         with torch.inference_mode():
             return self._forward(lr_frames, output_layout, return_intermediate)

@@ -21,9 +21,10 @@ Under autograd (``needs_grad``) a kernel op runs as a
 ``torch.autograd.Function``: its forward is the dispatch above, its
 backward ``recompute_vjp``, the vjp of the op's plain version recomputed
 from the saved inputs, as the JAX package's ``custom_vjp`` backward is the
-vjp of its XLA formulation. No kernel has a backward of its own, since no
-Pallas kernel had one; the recompute runs inside a profiler range named
-``RECOMPUTE_RANGE``.
+vjp of its XLA formulation; under ``create_graph=True`` the recompute keeps
+its graph, so gradients of gradients (second-order MAML) are the plain
+version's. No kernel has a backward of its own, since no Pallas kernel had
+one; the recompute runs inside a profiler range named ``RECOMPUTE_RANGE``.
 """
 
 from __future__ import annotations
@@ -75,12 +76,25 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
 def recompute_vjp(plain: Callable, inputs: Sequence[torch.Tensor], needs: Sequence[bool],
                   grad_out: torch.Tensor) -> List[Optional[torch.Tensor]]:
     """The vjp of ``plain(*inputs)`` at ``grad_out``: ``plain`` recomputed
-    under autograd from detached copies of ``inputs``, one gradient per input
-    (None where ``needs`` is False)."""
+    under autograd, one gradient per input (None where ``needs`` is False).
+
+    A first-order backward runs with grad mode off: the recompute starts
+    from detached copies of ``inputs`` and the gradients have no graph.
+    Under ``create_graph=True`` autograd runs the backward with grad mode
+    on: then the recompute starts from the saved inputs themselves (each
+    through an alias of its own, so that a tensor passed twice gets one
+    gradient per position) and keeps its graph, so the double backward is
+    the plain version's, as JAX differentiates a ``custom_vjp`` backward
+    (the vjp of the XLA formulation)."""
+    create_graph = torch.is_grad_enabled()
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        if create_graph:
+            leaves = [t.view_as(t) if n else t for t, n in zip(inputs, needs)]
+        else:
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
         with torch.profiler.record_function(RECOMPUTE_RANGE):
             out = plain(*leaves)
         wanted = [t for t, n in zip(leaves, needs) if n]
-        grads = iter(torch.autograd.grad(out, wanted, grad_out, allow_unused=True))
+        grads = iter(torch.autograd.grad(out, wanted, grad_out, allow_unused=True,
+                                         create_graph=create_graph))
     return [next(grads) if n else None for n in needs]

@@ -6,7 +6,8 @@ something to learn that bicubic upsampling cannot recover. Randomness comes
 from an explicit ``torch.Generator`` (the JAX package's PRNG bits are not
 reproduced); the datasets are numpy arrays on the host, NHWC, in [0, 1].
 ``batches`` is numpy and shuffles as the JAX package's does for the same
-``np.random.Generator``.
+``np.random.Generator``. ``make_task_sequence`` is the continual-learning
+task sequence, one dataset per content type.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+CONTENT_TYPES = ("sports", "animation", "movie", "news", "gaming")
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
@@ -70,8 +73,11 @@ def box_decimate(hr: torch.Tensor, scale: int) -> torch.Tensor:
 
 
 def make_sr_dataset(generator: torch.Generator, num_samples: int, lr_size: int = 64,
-                    scale: int = 2, channels: int = 3) -> Dict[str, np.ndarray]:
-    """{'lr': (N, s, s, C), 'hr': (N, s·scale, s·scale, C)} in [0, 1]."""
+                    scale: int = 2, channels: int = 3,
+                    content_offset: float = 0.0) -> Dict[str, np.ndarray]:
+    """{'lr': (N, s, s, C), 'hr': (N, s·scale, s·scale, C)} in [0, 1].
+    ``content_offset`` shifts the intensities, ``hr · (1 − 0.3·|o|) + 0.2·o``
+    clipped to [0, 1], as the per-content tasks of continual learning do."""
     hr_size = lr_size * scale
     base = smooth_random_images(generator, num_samples, hr_size, channels)
     # A sigmoid-thresholded smooth field: structured edges above the LR
@@ -79,7 +85,24 @@ def make_sr_dataset(generator: torch.Generator, num_samples: int, lr_size: int =
     edges = torch.sigmoid((smooth_random_images(generator, num_samples, hr_size, channels)
                            - 0.5) * 24.0)
     hr = torch.clamp(0.55 * base + 0.45 * edges, 0.0, 1.0)
+    if content_offset:
+        hr = torch.clamp(hr * (1.0 - abs(content_offset) * 0.3) + content_offset * 0.2, 0.0, 1.0)
     return {"lr": box_decimate(hr, scale).numpy(), "hr": hr.numpy()}
+
+
+def make_task_sequence(seed: int, num_tasks: int = 5, samples_per_task: int = 64,
+                       lr_size: int = 32, scale: int = 2) -> list:
+    """[(content type, dataset)] for continual learning: task i is content
+    type ``CONTENT_TYPES[i % 5]``, ``make_sr_dataset`` from a generator
+    seeded ``seed · 1000 + i`` at content offset ``(i − n/2) / n``."""
+    tasks = []
+    for i in range(num_tasks):
+        offset = (i - num_tasks / 2) / max(num_tasks, 1)
+        g = torch.Generator().manual_seed(seed * 1000 + i)
+        tasks.append((CONTENT_TYPES[i % len(CONTENT_TYPES)],
+                      make_sr_dataset(g, samples_per_task, lr_size, scale,
+                                      content_offset=offset)))
+    return tasks
 
 
 def make_video_sr_dataset(generator: torch.Generator, num_samples: int, lr_size: int = 64,

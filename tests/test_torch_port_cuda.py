@@ -43,7 +43,10 @@ frames, the RDB stack, the correlation, the warp) against plain autograd
 through its plain version, output and gradients at the levels above (the
 warp, whose plain backward scatters in bfloat16, at the chain's), at a
 small and at the training shape; a small
-flagship's launches per train step and a bit-exact resume.
+flagship's launches per train step and a bit-exact resume. Continual
+learning: each op's second derivatives (``create_graph=True``) against
+those through its plain version, at the small shapes and at the continual
+experiment's widths, at the training levels.
 """
 
 import importlib
@@ -1080,3 +1083,29 @@ def test_train_step_launches_and_resume(cuda, tmp_path):
                                       steps=3)
     fresh.load_state_dict(mgr.restore(fresh.state_dict()))
     assert torch.equal(fstep(fresh, *batches[2])[1]["loss"], loss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [None, (4, 32, 32, 16, 2, 32)], ids=["small", "continual"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(TRAIN_LIMITS))
+def test_double_backward(cuda, name, dtype, dims):
+    """Second derivatives (``create_graph=True``) through each kernel op as
+    the model calls it against those through its plain version
+    (``diag.continual.compare_hvp``), at the small shapes and at the
+    continual experiment's widths (16 features, RDB growth 32): every one
+    the plain version has is there, nonzero, within ``TRAIN_LIMITS``; the
+    forward launches the kernels."""
+    from nerve_tpu_torch.diag import continual as diag_continual
+    from nerve_tpu_torch.diag import train as diag_train
+
+    kernel, plain, leaves, g = diag_train.grad_cases(cuda, dtype, small=dims is None,
+                                                     dims=dims)[name]
+    dispatch.reset_launches()
+    stats = diag_continual.compare_hvp(kernel, plain, leaves, g)
+    if name != "warp":
+        assert sum(dispatch.launches.values()) > 0
+    limit = TRAIN_LIMITS[name][dtype == torch.bfloat16]
+    for i, st in enumerate(stats):
+        assert not st["mismatch"], (name, i)
+        assert st["max_abs"] <= limit * st["scale"], (name, i, st)
