@@ -179,6 +179,32 @@ Phases, each of which raises on failure and prints its wall time:
    strategy (``ewc``, ``replay``, ``si``, ``maml``, ``reptile``; 2 tasks, 1
    epoch, 16 samples, batch 8), the five as parallel subprocesses: exit 0,
    finite PSNRs in the last line.
+11. Federated: the federated pillar (``nerve_tpu_torch.federated``) on the
+   lightweight model, float32, TF32 off (``diag.federated``). (a) Its train
+   step (live BatchNorm) and its frozen-statistics step (the eval forward on
+   the tape, ``differentiable=True``), every parameter and statistic seeded,
+   batch 8 at LR 16² and 64²: the output, loss, every gradient and every new
+   running statistic on the kernel route against the plain route
+   (``diag.federated.plain_route()``): outputs, losses and statistics within
+   ``FED_LIMIT`` of max|plain|, the gradients together within
+   ``FED_GRADS_L2`` in relative L2 and each within ``FED_GRAD_TENSOR``; the launches of one
+   step exactly ``FED_STEP_LAUNCHES`` (train 2 ``conv_chain``; frozen 6
+   ``conv_chain`` and 4 ``conv_chain_dw3``; each backward none); 5 AdamW
+   steps of a ``VideoEnhancementClient`` on both routes, the parameters at
+   phase 9's rule. (b) One FedAvg round of the CLI's data (8 clients × 5
+   local steps, 32 samples at LR 16²) on both routes: the parameters at
+   phase 9's rule, ``update_norm`` within ``FED_NORM_REL``, the launches of
+   the round (40 steps' forwards), the plain route none; with DP clipping at
+   half the smallest client delta's norm, every clipped delta's norm at most
+   C and the largest at C. (c) ``python -m nerve_tpu_torch.train_federated``
+   in its four modes as parallel subprocesses: ``simulation`` at the
+   defaults (a finite ``final_loss``, client 0's loss lower after round 5
+   than after round 1), ``trainer`` at 2 rounds (a finite ``final_loss``),
+   ``server`` at 1 round with two ``client`` processes on ``127.0.0.1`` (the
+   server's round line with a finite ``train_loss``); any child failing
+   fails the phase, and every child is killed at the end. (d) ms per round
+   at the CLI's defaults and its launches, ms per client ``fit`` (1 epoch,
+   batch 8, 32 samples) at LR 16² and 64², the 64² fit's peak memory.
 
 ``--profile DIR`` profiles two steps of each slice, and two bf16 engine
 calls in "full" and in "recovery_only" mode (``diag.conv.profile``:
@@ -202,6 +228,7 @@ import json
 import math
 import re
 import shutil
+import socket
 import statistics
 import os
 import subprocess
@@ -222,6 +249,7 @@ from nerve_tpu_torch.diag import d2s as diag_d2s
 from nerve_tpu_torch.diag import probe
 from nerve_tpu_torch.diag.planar import launch_path
 from nerve_tpu_torch.diag import rdb as diag_rdb
+from nerve_tpu_torch.diag import federated as diag_fed
 from nerve_tpu_torch.diag import train as diag_train
 from nerve_tpu_torch.diag.conv import (
     BLOCKS,
@@ -263,6 +291,8 @@ from nerve_tpu_torch import training
 from nerve_tpu_torch.config.schema import TrainingConfig
 from nerve_tpu_torch.utils import data as data_lib
 from nerve_tpu_torch.utils.checkpoint import CheckpointManager
+from nerve_tpu_torch.federated.privacy import PrivacyConfig
+from nerve_tpu_torch.train_federated import client_dataset, stacked_client_data
 from nerve_tpu_torch.ops import (
     _build,
     conv_chain,
@@ -1663,12 +1693,12 @@ def _param_rule(name, got, want, p0) -> None:
     change, d = pk - base, (pk - pp).abs()
     dmax, cmax = d.max().item(), change.abs().max().item()
     dl2, cl2 = d.norm().item(), change.norm().item()
-    print(f"continual {name}: max|d| {dmax:.3e} = {dmax / cmax:.3e} of the largest change "
+    print(f"{name}: max|d| {dmax:.3e} = {dmax / cmax:.3e} of the largest change "
           f"(limit {TRAIN_PARAM_REL}); L2 {dl2:.3e} = {dl2 / cl2:.3e} of the change's "
           f"(limit {TRAIN_PARAM_L2})", flush=True)
     if not (cmax > 0 and dmax <= TRAIN_PARAM_REL * cmax and dl2 <= TRAIN_PARAM_L2 * cl2):
-        raise AssertionError(f"continual {name}: the kernel run's parameters differ from the "
-                             "plain run's")
+        raise AssertionError(f"{name}: the kernel run's parameters differ from the plain "
+                             "run's")
 
 
 def check_continual_library(dev, card: str) -> dict:
@@ -1688,7 +1718,7 @@ def check_continual_library(dev, card: str) -> dict:
         if key in ("maml launches", "p0"):
             continue
         if key.endswith("params"):
-            _param_rule(key, got, plain[key], kern["p0"])
+            _param_rule(f"continual {key}", got, plain[key], kern["p0"])
             continue
         r = diag_continual.rel_l2(got, plain[key])
         print(f"continual {key}: kernel vs plain relative L2 {r:.3e} (limit {CONTINUAL_L2})",
@@ -1746,6 +1776,174 @@ def run_continual_phase(dev, card: str) -> dict:
     check_continual_hvps(dev)
     launches = check_continual_library(dev, card)
     check_continual_cli(card)
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# Federated (phase 11): the lightweight model's training through its
+# kernels, one FedAvg round, the CLI's four modes
+# --------------------------------------------------------------------------- #
+# Kernel route vs plain route, float32 with TF32 off. Outputs, losses and
+# BatchNorm statistics: the conv chain's float32 level, relative to
+# max|plain| per tensor. Gradients: all of a step's together in relative L2
+# at that level, and each tensor within FED_GRAD_TENSOR of its max|plain|:
+# a BatchNorm bias's or scale's gradient is a sum over B·H·W terms that
+# cancel (measured 1.26e-4 of max|plain| on an H100 for body1's bias in the
+# train step at batch 8, 64²: 32,768 terms summing to 2.8e-3).
+FED_LIMIT = 1e-4
+FED_GRADS_L2 = 1e-4
+FED_GRAD_TENSOR = 1e-3
+FED_STEP_LAUNCHES = {"train": {"forward": {"conv_chain": 2}, "backward": {}},
+                     "frozen_stats": {"forward": {"conv_chain": 6, "conv_chain_dw3": 4},
+                                      "backward": {}}}
+FED_CLIENT_STEPS = 5
+FED_LOSS_REL = 1e-4  # each client step's loss, kernel vs plain route
+FED_NORM_REL = 1e-3  # the round's update_norm, kernel vs plain route
+
+
+def check_fed_steps(dev) -> None:
+    """Phase 11a."""
+    model = diag_fed.fed_model(dev)
+    for lr_size in diag_fed.FIT_LR_SIZES:
+        lr, hr = diag_fed.client_batch(dev, lr_size)
+        launches = diag_fed.step_launches(model, lr, hr)
+        print(f"federated step launches LR {lr_size}^2 batch {diag_fed.BATCH}: "
+              f"{json.dumps(launches)}", flush=True)
+        if launches != FED_STEP_LAUNCHES:
+            raise AssertionError(f"federated step launches {launches}, expected "
+                                 f"{FED_STEP_LAUNCHES}")
+        for kind, tensors in diag_fed.compare_routes(model, lr, hr).items():
+            l2 = diag_fed.grads_rel_l2(tensors)
+            for group in ("grad", "other"):
+                part = {k: v for k, v in tensors.items() if k.startswith("grad ") == (
+                    group == "grad")}
+                name, st = max(part.items(),
+                               key=lambda kv: kv[1]["max_abs"] / max(kv[1]["scale"], 1e-30))
+                limit = FED_GRAD_TENSOR if group == "grad" else FED_LIMIT
+                what = "gradients" if group == "grad" else "outputs, losses, statistics"
+                print(f"federated {kind} step LR {lr_size}^2 float32, kernel vs plain route, "
+                      f"{len(part)} {what}: worst {name} max|d| {st['max_abs']:.3e} = "
+                      f"{st['max_abs'] / max(st['scale'], 1e-30):.3e} of max|plain| "
+                      f"{st['scale']:.3e} (limit {limit}); mean {st['mean_abs']:.3e}", flush=True)
+                for k, t in part.items():
+                    if not t["max_abs"] <= limit * t["scale"]:
+                        raise AssertionError(f"federated {kind} step: {k} differs from the "
+                                             "plain route's")
+            print(f"federated {kind} step LR {lr_size}^2: the gradients' relative L2 "
+                  f"{l2:.3e} (limit {FED_GRADS_L2})", flush=True)
+            if not l2 <= FED_GRADS_L2:
+                raise AssertionError(f"federated {kind} step: the gradients differ from the "
+                                     "plain route's")
+    data = client_dataset(0, diag_fed.SAMPLES, diag_fed.SEED)
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    pk, lk = diag_fed.client_steps(model, data, FED_CLIENT_STEPS)
+    pp, lp = diag_fed.client_steps(model, data, FED_CLIENT_STEPS, plain=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    print(f"federated client {FED_CLIENT_STEPS} AdamW steps: losses kernels {lk}, plain "
+          f"{lp}: max rel {rel:.3e} (limit {FED_LOSS_REL})", flush=True)
+    if not all(math.isfinite(v) for v in lk + lp) or rel > FED_LOSS_REL:
+        raise AssertionError("the federated client's losses differ between the routes")
+    _param_rule(f"federated client after {FED_CLIENT_STEPS} steps", pk, pp, p0)
+
+
+def check_fed_round(dev) -> dict:
+    """Phase 11b; returns the launches of one round."""
+    model = diag_fed.fed_model(dev)
+    data = stacked_client_data(diag_fed.CLIENTS, diag_fed.SAMPLES, diag_fed.SEED, dev)
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    pk, mk, lk = diag_fed.round_run(model, data, diag_fed.LOCAL_STEPS)
+    pp, mp, lp = diag_fed.round_run(model, data, diag_fed.LOCAL_STEPS, plain=True)
+    steps = diag_fed.CLIENTS * diag_fed.LOCAL_STEPS
+    want = {k: steps * v for k, v in FED_STEP_LAUNCHES["frozen_stats"]["forward"].items()}
+    rel = abs(mk["update_norm"] - mp["update_norm"]) / mp["update_norm"]
+    print(f"federated round {diag_fed.CLIENTS} clients x {diag_fed.LOCAL_STEPS} local steps: "
+          f"launches {lk} (plain route {lp}); update_norm kernels {mk['update_norm']!r}, "
+          f"plain {mp['update_norm']!r}: rel {rel:.3e} (limit {FED_NORM_REL})", flush=True)
+    if lk != want or lp:
+        raise AssertionError(f"federated round launches {lk}, plain {lp}: expected {want}")
+    if not (math.isfinite(mk["update_norm"]) and rel <= FED_NORM_REL):
+        raise AssertionError("the round's update_norm differs between the routes")
+    _param_rule("federated round", pk, pp, p0)
+    norms = diag_fed.delta_norms(model, data, diag_fed.LOCAL_STEPS, None)
+    cap = 0.5 * min(norms)
+    clipped = diag_fed.delta_norms(model, data, diag_fed.LOCAL_STEPS,
+                                   PrivacyConfig(max_grad_norm=cap, noise_multiplier=0.1))
+    print(f"federated DP clip at C = {cap:.4e} (half the smallest of the delta norms "
+          f"{[f'{v:.4e}' for v in norms]}): clipped norms {[f'{v:.4e}' for v in clipped]}",
+          flush=True)
+    if not (max(clipped) <= cap * (1 + 1e-5) and max(clipped) >= cap * (1 - 1e-3)):
+        raise AssertionError("a clipped client delta's norm is not C")
+    _pd, md, _ld = diag_fed.round_run(model, data, diag_fed.LOCAL_STEPS, privacy=PrivacyConfig(
+        max_grad_norm=cap, noise_multiplier=0.1))
+    if not math.isfinite(md["update_norm"]):
+        raise AssertionError(f"the DP round's metrics {md}")
+    return lk
+
+
+def _client0_losses(text: str) -> list:
+    return [float(m) for m in re.findall(r"client0_loss=(\S+)", text)]
+
+
+def check_fed_cli(card: str) -> None:
+    """Phase 11c: the four modes at once."""
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    with socket.socket() as probe_sock:
+        probe_sock.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{probe_sock.getsockname()[1]}"
+    runs = {"simulation": [], "trainer": ["--num-rounds", "2"],
+            "server": ["--server-address", address, "--num-rounds", "1",
+                       "--wait-timeout", "60"],
+            "client 0": ["--server-address", address, "--client-id", "0"],
+            "client 1": ["--server-address", address, "--client-id", "1"]}
+    t0 = time.perf_counter()
+    procs, outs = {}, {}
+    try:
+        for name, extra in runs.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "nerve_tpu_torch.train_federated", "--mode",
+                 name.split()[0], *extra], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=env)
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"train_federated --mode {name} failed: {err[-2000:]}")
+            outs[name] = out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name in ("simulation", "trainer"):
+        summary = json.loads(outs[name].strip().splitlines()[-1])
+        print(f"train_federated --mode {name}: {json.dumps(summary)}", flush=True)
+        if not math.isfinite(summary["final_loss"]):
+            raise AssertionError(f"train_federated --mode {name}: {summary}")
+    losses = _client0_losses(outs["simulation"])
+    print(f"train_federated --mode simulation client 0 losses by round {losses}", flush=True)
+    if not (len(losses) == 5 and losses[-1] < losses[0]):
+        raise AssertionError("the simulation's client-0 loss did not fall from round 1 to 5")
+    rounds = [ln for ln in outs["server"].splitlines() if ln.startswith("round 1:")]
+    print(f"train_federated --mode server with 2 clients: {rounds}", flush=True)
+    loss = re.search(r"'train_loss': ([^,}]+)", rounds[0]) if rounds else None
+    if loss is None or not math.isfinite(float(loss.group(1))):
+        raise AssertionError(f"the server's round: {outs['server'][-2000:]}")
+    print(f"train_federated CLI, four modes in parallel: {time.perf_counter() - t0:.1f} s on "
+          f"{card}", flush=True)
+
+
+def run_federated_phase(dev, card: str) -> dict:
+    """Phase 11; returns the launches of one round."""
+    check_fed_steps(dev)
+    launches = check_fed_round(dev)
+    check_fed_cli(card)
+    t = diag_fed.timing(dev)
+    print(f"federated lightweight float32: FedAvg round at the CLI's defaults "
+          f"({diag_fed.CLIENTS} clients x {diag_fed.LOCAL_STEPS} local steps, "
+          f"{diag_fed.SAMPLES} samples at LR 16^2) {t['round_ms']:.2f} ms, launches "
+          f"{t['round_launches']}; client fit (1 epoch, batch {diag_fed.BATCH}, "
+          f"{diag_fed.SAMPLES} samples) LR 16^2 {t['fit_ms_16']:.2f} ms, LR 64^2 "
+          f"{t['fit_ms_64']:.2f} ms, peak {t['fit_peak_bytes_64'] / 2**20:.1f} MiB allocated "
+          f"(medians of 3 after 1); on {card}", flush=True)
     return launches
 
 
@@ -1810,6 +2008,8 @@ def main() -> int:
         run_train_phase(dev, card, args.profile)
     with phase("continual"):
         run_continual_phase(dev, card)
+    with phase("federated"):
+        run_federated_phase(dev, card)
     if args.profile:
         with phase("profile"):
             profile({"bf16": streamer(bf16_model), "int8": streamer(int8_model),

@@ -14,9 +14,9 @@ quantised with ``PER_CHANNEL_INT8`` loads unchanged: its wire format is the
 same (the per-channel factors tiled over the taps), and serving it takes
 ``ops.rdb_int8.PER_CHANNEL_INT8 = True`` in the port too.
 
-``flax_variables`` is the reverse for a float model: its parameters and
-BatchNorm statistics as a flax-shaped ``{"params", "batch_stats"}`` tree of
-numpy arrays (how the tests hold a trained port against the JAX package by
+``flax_variables`` is the reverse for a float model (the flagship, the
+lightweight model): its parameters and BatchNorm statistics as a
+flax-shaped ``{"params", "batch_stats"}`` tree of numpy arrays (how the tests hold a trained port against the JAX package by
 flax path). ``params_to_flax`` does the same for a dict of tensors by
 parameter name, as the continual-learning rules keep them.
 """

@@ -10,7 +10,8 @@ depth-to-space. Input (B, T, H, W, C) with T = 2·temporal_window + 1.
 
 ``LightweightSuperResolution`` is single-frame: one BN-folded chain (head
 3×3, four depthwise-separable blocks, tail 3×3) through
-``ops.conv_chain_apply``, then the same bicubic epilogue.
+``ops.conv_chain_apply``, then the same bicubic epilogue; in training mode
+its blocks run one after another on live BatchNorm.
 
 The kernel ops are called through the ``ops`` namespace
 (``ops.conv_chain_apply``, ``ops.correlation_volume``,
@@ -378,12 +379,21 @@ class LightweightSuperResolution(nn.Module):
 
     Parameters carry the flax names (``head``, ``body0``..``body3``,
     ``tail``); the tail starts at zero, so an untrained model returns the
-    clamped bicubic upscale. The forward builds the BN-folded 10-entry chain
-    (head 3×3 → 32 + relu, four (depthwise 3×3, pointwise 1×1 + relu)
+    clamped bicubic upscale. The eval forward builds the BN-folded 10-entry
+    chain (head 3×3 → 32 + relu, four (depthwise 3×3, pointwise 1×1 + relu)
     blocks, tail 3×3 → C·s²) and runs it through ``ops.conv_chain_apply``
-    in ``dtype``; the bicubic base comes from the input in its own dtype.
-    Inference only: the reference's training path needs live BatchNorm
-    statistics, so a module in training mode raises (call ``.eval()``).
+    in ``dtype`` (on the card 6 dense and 4 depthwise launches); the bicubic
+    base comes from the input in its own dtype. It runs under
+    ``torch.inference_mode``, or with ``differentiable=True`` under autograd
+    (the reference's ``train=False`` under ``jax.grad``: the running
+    statistics held, the fold on the tape, so ``scale``, ``bias`` and
+    ``pointwise`` get gradients through it; forward only on the kernels).
+
+    In training mode it is the reference's ``train=True`` path: the head and
+    the tail through ``ops.conv_chain_apply`` one layer each (on the card 2
+    dense launches, under autograd the kernels forward and the plain
+    version's vjp backward), each block's ``train_forward`` between them
+    (live BatchNorm; the running statistics move), then the same epilogue.
     """
 
     def __init__(self, in_channels: int = 3, scale_factor: int = 2,
@@ -405,14 +415,28 @@ class LightweightSuperResolution(nn.Module):
             entries += getattr(self, f"body{i}").as_entries()
         return entries + [self.tail.entry("none")]
 
-    @torch.inference_mode()
-    def forward(self, x: torch.Tensor, output_layout: str = "nhwc") -> torch.Tensor:
-        if self.training:
-            raise RuntimeError("LightweightSuperResolution is inference only: call .eval() first")
+    def train_body(self, x: torch.Tensor) -> torch.Tensor:
+        """The training-mode residual (phase channels); updates the blocks'
+        running statistics."""
+        y = ops.conv_chain_apply(x, [self.head.entry("relu")])
+        for i in range(4):
+            y = getattr(self, f"body{i}").train_forward(y)
+        return ops.conv_chain_apply(y, [self.tail.entry("none")])
+
+    def forward(self, x: torch.Tensor, output_layout: str = "nhwc",
+                differentiable: bool = False) -> torch.Tensor:
         if output_layout not in OUTPUT_LAYOUTS:
             raise ValueError(f"unknown output_layout {output_layout!r}")
+        if self.training or differentiable:
+            return self._forward(x, output_layout)
+        with torch.inference_mode():
+            return self._forward(x, output_layout)
+
+    def _forward(self, x: torch.Tensor, output_layout: str) -> torch.Tensor:
         s = self.scale_factor
-        residual_ch = ops.conv_chain_apply(x.to(self.dtype), self.chain())
+        inp = x.to(self.dtype)
+        residual_ch = self.train_body(inp) if self.training else ops.conv_chain_apply(
+            inp, self.chain())
         bicubic_ch = ops.upsample_bicubic_channels(x, s)
         return _epilogue(bicubic_ch, residual_ch, s, self.dtype, output_layout)
 

@@ -73,12 +73,17 @@ def lr_schedule(cfg: TrainingConfig, steps_per_epoch: int = 100) -> Callable[[in
                                warmup_steps, total_steps, cfg.learning_rate * 0.01)
 
 
+def global_norm(tensors) -> torch.Tensor:
+    """``optax.global_norm``: the L2 norm of all the elements of ``tensors``."""
+    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
+
+
 @torch.no_grad()
 def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     """``optax.clip_by_global_norm``: where the global norm of ``grads`` is
     at least ``max_norm``, scale them by ``max_norm / norm`` in place.
     Returns the norm (on the device, no host sync)."""
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    norm = global_norm(grads)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(scale)

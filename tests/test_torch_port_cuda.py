@@ -46,7 +46,11 @@ small and at the training shape; a small
 flagship's launches per train step and a bit-exact resume. Continual
 learning: each op's second derivatives (``create_graph=True``) against
 those through its plain version, at the small shapes and at the continual
-experiment's widths, at the training levels.
+experiment's widths, at the training levels. Federated learning: the
+lightweight model's train step (live BatchNorm) and frozen-statistics step,
+float32 at batch 8, LR 16² and 64², output, gradients and statistics against
+the plain route at the conv chain's float32 level (each gradient within 10×
+that, all together within it in relative L2), and the launches of a step.
 """
 
 import importlib
@@ -1109,3 +1113,33 @@ def test_double_backward(cuda, name, dtype, dims):
     for i, st in enumerate(stats):
         assert not st["mismatch"], (name, i)
         assert st["max_abs"] <= limit * st["scale"], (name, i, st)
+
+
+# The lightweight model's local steps of the federated path: launches per
+# step (forward only; the backward recomputes the plain versions).
+FED_STEP_LAUNCHES = {"train": {"conv_chain": 2}, "frozen_stats": {"conv_chain": 6,
+                                                                   "conv_chain_dw3": 4}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lr_size", [16, 64])
+@pytest.mark.parametrize("kind", list(FED_STEP_LAUNCHES))
+def test_lightweight_step_grads(cuda, kind, lr_size):
+    """The lightweight model's train step (live BatchNorm) and its
+    frozen-statistics step, float32, batch 8: output, loss, every gradient
+    and every new running statistic on the kernel route against the plain
+    route (``diag.federated``), at the conv chain's float32 level; the
+    launches of one step."""
+    from nerve_tpu_torch.diag import federated as diag_fed
+
+    model = diag_fed.fed_model(cuda)
+    lr, hr = diag_fed.client_batch(cuda, lr_size)
+    launches = diag_fed.step_launches(model, lr, hr)[kind]
+    assert launches == {"forward": FED_STEP_LAUNCHES[kind], "backward": {}}, launches
+    tensors = diag_fed.compare_routes(model, lr, hr)[kind]
+    limit = LIMITS["conv_chain"][0]
+    assert diag_fed.grads_rel_l2(tensors) <= limit
+    for name, st in tensors.items():
+        # A BatchNorm gradient is a sum over B·H·W terms that cancel.
+        rel = 10 * limit if name.startswith("grad ") else limit
+        assert st["max_abs"] <= rel * st["scale"], (name, st)

@@ -222,8 +222,11 @@ def test_untrained_output_is_clipped_bicubic(dtype):
 def test_training_mode_raises_and_names_match_flax(lightweight):
     variables, _refs, x = lightweight
     model = LightweightSuperResolution(device="cpu")
-    with pytest.raises(RuntimeError, match="eval"):
-        model(torch.from_numpy(x))
+    # Training mode trains (on the tape, live BatchNorm); a bad layout
+    # raises in either mode.
+    assert model(torch.from_numpy(x)).requires_grad
+    with pytest.raises(ValueError, match="layout"):
+        model(torch.from_numpy(x), output_layout="nchw")
     with pytest.raises(ValueError, match="layout"):
         model.eval()(torch.from_numpy(x), output_layout="nchw")
     with pytest.raises(KeyError, match="BatchNorm_0.mean"):

@@ -108,6 +108,12 @@ SERVING_MODULES = (
     "nerve_tpu_torch.models.enhancement_engine", "nerve_tpu_torch.models.frame_recovery",
     "nerve_tpu_torch.models.streaming", "nerve_tpu_torch.models.quantize",
     "nerve_tpu_torch.ops.pool", "nerve_tpu_torch.ops.resize",
+    "nerve_tpu_torch.federated", "nerve_tpu_torch.federated.client",
+    "nerve_tpu_torch.federated.clustering", "nerve_tpu_torch.federated.common",
+    "nerve_tpu_torch.federated.flower_compat", "nerve_tpu_torch.federated.privacy",
+    "nerve_tpu_torch.federated.server", "nerve_tpu_torch.federated.simulation",
+    "nerve_tpu_torch.federated.transport", "nerve_tpu_torch.train_federated",
+    "nerve_tpu_torch.diag.federated",
 )
 
 
@@ -118,7 +124,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'nerve_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'nerve_tpu', 'flwr'))\n"
         "assert not bad, bad\n"
         f"missing = sorted(set({SERVING_MODULES!r}) - set(sys.modules))\n"
         "assert not missing, missing\n"
