@@ -1,6 +1,6 @@
 """Drive the PyTorch port's SR serving paths once on an NVIDIA GPU.
 
-    python3 chip_smoke.py              # the checks below, ~3-4 min on an H100 with the build
+    python3 chip_smoke.py              # the checks below, ~6-7 min on an H100 with the build
     python3 chip_smoke.py --profile build/traces   # also profile the three slices
 
 Phases, each of which raises on failure and prints its wall time:
@@ -205,6 +205,42 @@ Phases, each of which raises on failure and prints its wall time:
    fails the phase, and every child is killed at the end. (d) ms per round
    at the CLI's defaults and its launches, ms per client ``fit`` (1 epoch,
    batch 8, 32 samples) at LR 16² and 64², the 64² fit's peak memory.
+12. Recovery and checkpoints (``diag.recovery``; float32, TF32 off). (a) One
+   recovery train step (``training.recovery``: base 64, window 2, T = 5,
+   batch 8, 64², seeded weights, the protocol's masks) on the card against
+   the same step on the CPU from the same weights and batch: the loss
+   within ``RECOVERY_LOSS_REL``, the running statistics within
+   ``RECOVERY_STAT_REL`` of max|CPU|, each gradient within
+   ``RECOVERY_GRAD_L2`` in relative L2 or, over that, no farther from the
+   same step in float64 on the card than the CPU's. (b) 20 AdamW steps over
+   fresh batches: the loss falls (the mean of the last 5 under the first
+   5's); ms per step (host clock, median of 10 after 3), CUDA-event ms
+   per step over 10 chained steps (``utils.profiling.timed_chain``), peak
+   memory, and the hand-written
+   kernels' launches per step, which stay 0 (the net is plain
+   ATen/cuDNN). (c) ``python -m nerve_tpu_torch.recovery_protocol`` at 1
+   epoch, 48/16 samples: its JSON line parses and its masked PSNR beats
+   zero-fill at every fraction. (d) The seeded bf16 engine's weights
+   written as a nerve_cl state dict by this script's own inverse of the
+   import mapping (``NerveClExport``), read back bit-exactly by
+   ``models.import_torch``, then ``python -m nerve_tpu_torch.enhance
+   --torch-checkpoint`` on 3 uint8 1080p frames with masks, 2160p out
+   through the kernels (24 ``rdb``, its launches printed). (e) ``python -m
+   nerve_tpu_torch.train_baseline`` (64/8, 1 epoch at LR 32²) writes a
+   checkpoint that ``enhance --sr-checkpoint`` serves (``sr_only``) and
+   that loads into the facade's SR net exactly; with 4 RDBs the CLI exits
+   non-zero with the mismatch message. (g) The int8 engine's SR net
+   (``quantize_int8(chains=True)``) in ``.train()``: no
+   ``conv_chain_int8``, 8 ``rdb_int8``, the chain sites on ``conv_chain``,
+   the output against the plain route's at the int8 limits; (f) its
+   ``streaming_step_pair`` against two ``streaming_step``s at the int8
+   limits. (h) The BatchNorm scale and bias
+   gradients of phase 9's bf16 train step and of phase 11's float32 train
+   step at 64², on the kernel route and on the plain route, each against
+   the plain route in float64: the kernel route's worst error within 2× of
+   the plain route's. The CLIs (c)-(e) run as subprocesses beside (a), (b),
+   (g), (f), (h). Phase 10 also prints the float32 route's times at the
+   meta step's shapes (``diag.continual.float32_rows``).
 
 ``--profile DIR`` profiles two steps of each slice, and two bf16 engine
 calls in "full" and in "recovery_only" mode (``diag.conv.profile``:
@@ -212,7 +248,9 @@ idle share, kernels by time, the RDB fusions', dense layers' and ATen
 copies' time and launches per step), and two train steps
 (``diag.train.profile_split``: device ms per step of the forward's
 kernels, the forward's ATen work, the backward's recompute of the plain
-versions, the rest of the backward and the optimiser). The probe (``diag.probe``) runs first
+versions, the rest of the backward and the optimiser), and two recovery
+train steps (``diag.recovery.profile_step``: device ms by part and by
+kernel, idle share). The probe (``diag.probe``) runs first
 in the device phase. The line before
 the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -250,6 +288,7 @@ from nerve_tpu_torch.diag import probe
 from nerve_tpu_torch.diag.planar import launch_path
 from nerve_tpu_torch.diag import rdb as diag_rdb
 from nerve_tpu_torch.diag import federated as diag_fed
+from nerve_tpu_torch.diag import recovery as diag_recovery
 from nerve_tpu_torch.diag import train as diag_train
 from nerve_tpu_torch.diag.conv import (
     BLOCKS,
@@ -282,12 +321,14 @@ from nerve_tpu_torch.models import (
     LightweightSuperResolution,
     SuperResolutionNet,
     api,
+    flax_variables,
+    import_torch,
     quantize_sr,
     streaming_prime,
     streaming_step,
     streaming_step_pair,
 )
-from nerve_tpu_torch import training
+from nerve_tpu_torch import enhance, training
 from nerve_tpu_torch.config.schema import TrainingConfig
 from nerve_tpu_torch.utils import data as data_lib
 from nerve_tpu_torch.utils.checkpoint import CheckpointManager
@@ -1339,10 +1380,12 @@ def check_video(eng, dev, card: str) -> None:
           f"{6 / sec:.2f} frames/s on {card}", flush=True)
 
 
-def check_pair_step(model, video_f, card: str) -> None:
+def check_pair_step(model, video_f, card: str, limits=(SLICE_MAX_ABS, SLICE_MEAN_ABS),
+                    label: str = "") -> None:
     """``streaming_step_pair`` against two ``streaming_step`` calls on the
-    video's 1080p frames, from the same carry, at the slice's limits; ms per
-    output frame of each."""
+    video's 1080p frames, from the same carry, at ``limits`` (max, mean
+    |Δ|; the bf16 slice's by default); ms per output frame of each."""
+    max_abs, mean_abs = limits
     frames = [video_f[:, i].permute(0, 2, 3, 1).contiguous() for i in range(4)]
     carry = streaming_step(model, streaming_prime(model, frames[0]), frames[1])[0]
 
@@ -1357,11 +1400,11 @@ def check_pair_step(model, video_f, card: str) -> None:
                (b1.float() - b2.float()).abs().max().item())
     dmean = max((a1.float() - a2.float()).abs().mean().item(),
                 (b1.float() - b2.float()).abs().mean().item())
-    print(f"streaming_step_pair vs two streaming_step: max|d| {dmax:.3e} (limit "
-          f"{SLICE_MAX_ABS}), mean|d| {dmean:.3e} (limit {SLICE_MEAN_ABS}); "
+    print(f"{label}streaming_step_pair vs two streaming_step: max|d| {dmax:.3e} (limit "
+          f"{max_abs}), mean|d| {dmean:.3e} (limit {mean_abs}); "
           f"{ms1 / 2:.2f} ms/frame stepping, {ms2 / 2:.2f} ms/frame as a pair on {card}",
           flush=True)
-    if dmax > SLICE_MAX_ABS or dmean > SLICE_MEAN_ABS:
+    if dmax > max_abs or dmean > mean_abs:
         raise AssertionError("the pair step differs from two single steps")
 
 
@@ -1646,6 +1689,7 @@ CONTINUAL_DIMS = {"small": None, "experiment": (16, 32, 32, 16, 2, 32)}
 # term alone is printed: 0.17 at 64/8, inner rate 0.01).
 CONTINUAL_L2 = 1e-3
 CONTINUAL_LAUNCHES = ("conv_chain", "rdb", "rdb_lff", "correlation")
+FLOAT32_ROW_REL = 1e-4  # the float32 rows' kernels vs plain, of max|plain| (TF32 off)
 CONTINUAL_STRATEGIES = ("ewc", "replay", "si", "maml", "reptile")
 
 
@@ -1776,6 +1820,11 @@ def run_continual_phase(dev, card: str) -> dict:
     check_continual_hvps(dev)
     launches = check_continual_library(dev, card)
     check_continual_cli(card)
+    print(f"float32 route at the meta step's shapes on {card}:", flush=True)
+    for name, r in diag_continual.float32_rows(dev).items():
+        if not r["launches"] or r["rel_err"] > FLOAT32_ROW_REL:
+            raise AssertionError(f"float32 {name}: launches {r['launches']}, error "
+                                 f"{r['rel_err']:.3e} of max|plain|")
     return launches
 
 
@@ -1947,6 +1996,363 @@ def run_federated_phase(dev, card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Recovery and checkpoints (phase 12): the recovery net's training, its
+# protocol CLI, nerve_cl and train_baseline checkpoints through the enhance
+# CLI, the int8 engine's pair step and training mode, BatchNorm gradients
+# against float64
+# --------------------------------------------------------------------------- #
+# One recovery train step, card vs CPU (float32, TF32 off): the loss
+# relative, each gradient in relative L2 (or, over that, no further from
+# the step in float64 on the card than the CPU's is), each running
+# statistic relative to max|CPU|.
+RECOVERY_LOSS_REL, RECOVERY_GRAD_L2, RECOVERY_STAT_REL = 1e-5, 1e-4, 1e-5
+CLI_TIMEOUT = 600
+
+
+def _conv_oihw(k):
+    return np.transpose(k, (3, 2, 0, 1))
+
+
+class NerveClExport:
+    """Flax-shaped engine variables → a nerve_cl state dict: the inverse of
+    ``models.import_torch`` (OIHW, Conv3d, ConvTranspose2d's (in, out)
+    layout with unflipped taps, Linear's (out, in), the LFF as a 1 × 1 conv,
+    BatchNorm's running statistics and counter), kept here apart from the
+    package it checks."""
+
+    def __init__(self, variables):
+        from nerve_tpu_torch.models.bridge import _flatten
+
+        self.params = _flatten(variables["params"])
+        self.stats = _flatten(variables["batch_stats"])
+        self.sd = {}
+
+    def put(self, key, value):
+        self.sd[key] = torch.from_numpy(np.ascontiguousarray(value, np.float32))
+
+    def p(self, path):
+        return self.params.pop(path.replace("/", "."))
+
+    def conv(self, tk, fp, bias=True):
+        self.put(f"{tk}.weight", _conv_oihw(self.p(f"{fp}/kernel")))
+        if bias:
+            self.put(f"{tk}.bias", self.p(f"{fp}/bias"))
+
+    def bn(self, tk, fp):
+        self.put(f"{tk}.weight", self.p(f"{fp}/scale"))
+        self.put(f"{tk}.bias", self.p(f"{fp}/bias"))
+        for ours, theirs in (("mean", "running_mean"), ("var", "running_var")):
+            self.put(f"{tk}.{theirs}", self.stats.pop(f"{fp}/{ours}".replace("/", ".")))
+        self.sd[f"{tk}.num_batches_tracked"] = torch.tensor(1)
+
+    def dwsep(self, tk, fp):
+        for part in ("depthwise", "pointwise"):
+            self.put(f"{tk}.{part}.weight", _conv_oihw(self.p(f"{fp}/{part}/kernel")))
+        self.bn(f"{tk}.bn", f"{fp}/BatchNorm_0")
+
+    def residual_block(self, tk, fp):
+        self.dwsep(f"{tk}.conv1", f"{fp}/conv1")
+        self.put(f"{tk}.conv2.0.weight", _conv_oihw(self.p(f"{fp}/conv2_dw/kernel")))
+        self.put(f"{tk}.conv2.1.weight", _conv_oihw(self.p(f"{fp}/conv2_pw/kernel")))
+        self.bn(f"{tk}.conv2.2", f"{fp}/bn2")
+
+    def cbam(self, tk, fp):
+        for i, j in ((0, 0), (1, 2)):
+            self.put(f"{tk}.channel_attention.fc.{j}.weight",
+                     self.p(f"{fp}/ChannelAttention_0/Dense_{i}/kernel").T)
+        self.put(f"{tk}.spatial_attention.conv.weight",
+                 _conv_oihw(self.p(f"{fp}/SpatialAttention_0/conv_kernel")))
+
+    def engine(self, cfg: EngineConfig) -> dict:
+        fr, se = "frame_recovery", "frame_recovery.spatial_encoder"
+        self.conv(f"{se}.stem.0", f"{fr}/spatial_encoder/stem", bias=False)
+        self.bn(f"{se}.stem.1", f"{fr}/spatial_encoder/stem_bn")
+        for st in (1, 2, 3):
+            if st > 1:
+                self.conv(f"{se}.stage{st}.0.0", f"{fr}/spatial_encoder/stage{st}_down", False)
+                self.bn(f"{se}.stage{st}.0.1", f"{fr}/spatial_encoder/stage{st}_down_bn")
+            for i in range(2):
+                self.residual_block(f"{se}.stage{st}.{i + (st > 1)}",
+                                    f"{fr}/spatial_encoder/stage{st}_block{i}")
+        self.cbam(f"{se}.attention", f"{fr}/spatial_encoder/attention")
+        for i in (1, 2, 3):
+            for part in ("spatial", "temporal"):
+                k = self.p(f"{fr}/temporal_encoder/conv{i}/{part}/kernel")
+                self.put(f"{fr}.temporal_encoder.conv{i}.{part}.0.weight",
+                         np.transpose(k, (4, 3, 0, 1, 2)))
+                self.bn(f"{fr}.temporal_encoder.conv{i}.{part}.1",
+                        f"{fr}/temporal_encoder/conv{i}/{part}_bn")
+        self.conv(f"{fr}.fusion.align", f"{fr}/fusion/align")
+        self.conv(f"{fr}.fusion.attention.0", f"{fr}/fusion/attn0")
+        self.conv(f"{fr}.fusion.attention.2", f"{fr}/fusion/attn1")
+        for proj in ("spatial_proj", "temporal_proj"):  # nerve_cl's constants: no entry
+            self.p(f"{fr}/fusion/{proj}/kernel")
+        for i in range(2):
+            self.residual_block(f"{fr}.fusion.refine.{i}", f"{fr}/fusion/refine{i}")
+        self.cbam(f"{fr}.fusion.refine.2", f"{fr}/fusion/refine_cbam")
+        for i in (1, 2, 3, 4):
+            k = self.p(f"{fr}/decoder/up{i}/kernel")
+            self.put(f"{fr}.decoder.up{i}.0.weight", np.transpose(k[::-1, ::-1], (2, 3, 0, 1)))
+            self.bn(f"{fr}.decoder.up{i}.1", f"{fr}/decoder/up{i}_bn")
+        self.conv(f"{fr}.decoder.final.0", f"{fr}/decoder/final")
+        sr, fe = "super_resolution", "super_resolution.feature_extractor"
+        self.conv(f"{fe}.head.0", f"{sr}/feature_extractor/head")
+        for i in range(3):
+            self.dwsep(f"{fe}.body.{i}", f"{sr}/feature_extractor/body{i}")
+        for i, j in enumerate((0, 2, 4, 6)):
+            self.conv(f"{sr}.motion_estimator.flow_net.{j}", f"{sr}/motion_estimator/flow{i}")
+        for i, j in enumerate((0, 2, 4)):
+            self.conv(f"{sr}.temporal_aggregator.attention.{j}",
+                      f"{sr}/temporal_aggregator/attn{i}")
+        self.cbam(f"{sr}.temporal_aggregator.refine", f"{sr}/temporal_aggregator/refine")
+        for b in range(cfg.sr_num_residual_blocks):
+            for i in range(5):
+                self.put(f"{sr}.residual_blocks.{b}.layers.{i}.0.weight",
+                         _conv_oihw(self.p(f"{sr}/rdbs/rdb{b}_dense{i}_kernel")))
+                self.put(f"{sr}.residual_blocks.{b}.layers.{i}.0.bias",
+                         self.p(f"{sr}/rdbs/rdb{b}_dense{i}_bias"))
+            self.put(f"{sr}.residual_blocks.{b}.lff.weight",
+                     self.p(f"{sr}/rdbs/rdb{b}_lff_kernel").T[:, :, None, None])
+            self.put(f"{sr}.residual_blocks.{b}.lff.bias", self.p(f"{sr}/rdbs/rdb{b}_lff_bias"))
+        self.conv(f"{sr}.gff.0", f"{sr}/gff")
+        self.conv(f"{sr}.upsampler.conv", f"{sr}/upsampler/conv")
+        self.put("enhancement_strength", self.p("enhancement_strength").reshape(()))
+        if self.params or self.stats:
+            raise AssertionError(f"not exported: {sorted(self.params)[:4]} "
+                                 f"{sorted(self.stats)[:4]}")
+        return self.sd
+
+
+def _run(cmd, timeout=CLI_TIMEOUT):
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    return subprocess.run([sys.executable, "-m", *map(str, cmd)], capture_output=True,
+                          text=True, env=env, timeout=timeout)
+
+
+def _last_json(proc, what: str) -> dict:
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} failed: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def protocol_cli() -> dict:
+    """12c: ``python -m nerve_tpu_torch.recovery_protocol`` at 1 epoch, 48/16
+    samples, its defaults otherwise."""
+    t0 = time.perf_counter()
+    out = _last_json(_run(["nerve_tpu_torch.recovery_protocol", "--epochs", "1",
+                           "--train-samples", "48", "--eval-samples", "16"]),
+                     "the recovery protocol CLI")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def write_nerve_cl_engine(dev, path: Path) -> None:
+    """12d: the seeded bf16 engine's weights (the fusion's projections at
+    nerve_cl's 1/c constants) as a nerve_cl state dict under
+    ``"model_state_dict"``; the importer must read them back bit-exactly."""
+    eng = seeded_engine(dev, seed=5)
+    variables = flax_variables(eng.module)
+    c = 4 * ENGINE_CONFIG.recovery_base_channels
+    for proj in ("spatial_proj", "temporal_proj"):
+        variables["params"]["frame_recovery"]["fusion"][proj]["kernel"] = np.full(
+            (1, 1, c, c), 1.0 / c, np.float32)
+    sd = NerveClExport(variables).engine(ENGINE_CONFIG)
+    torch.save({"model_state_dict": sd, "epoch": 0}, path)
+    back = import_torch.import_enhancement_engine(import_torch.load_state_dict(str(path)),
+                                                  ENGINE_CONFIG)
+    from nerve_tpu_torch.models.bridge import _flatten
+
+    for coll in ("params", "batch_stats"):
+        want, got = _flatten(variables[coll]), _flatten(back[coll])
+        if set(want) != set(got) or not all(np.array_equal(want[k], got[k]) for k in want):
+            raise AssertionError(f"the imported {coll} differ from the exported weights")
+    print(f"nerve_cl state dict: {len(sd)} entries written, read back bit-exactly "
+          f"({sum(v.numel() for v in sd.values())} values)", flush=True)
+
+
+def torch_checkpoint_cli(tmp: Path) -> dict:
+    """12d: ``enhance --torch-checkpoint`` on 3 uint8 1080p frames with a
+    mask on the middle one, bf16, flow at half resolution."""
+    g = torch.Generator().manual_seed(24)
+    np.save(tmp / "in.npy", torch.randint(0, 256, (3, H, W, 3), generator=g,
+                                          dtype=torch.uint8).numpy())
+    masks = np.zeros((3, 1, H, W), np.float32)
+    masks[1, :, MASK_ROWS, MASK_COLS] = 1.0
+    np.save(tmp / "m.npy", masks)
+    out = _last_json(_run(["nerve_tpu_torch.enhance", tmp / "in.npy", "-o", tmp / "out.npy",
+                           "--masks", tmp / "m.npy", "--dtype", "bfloat16",
+                           "--sr-flow-downsample", "2", "--torch-checkpoint",
+                           tmp / "engine.pth"]), "enhance --torch-checkpoint")
+    arr = np.load(tmp / "out.npy", mmap_mode="r")
+    out["dtype_ok"] = arr.dtype == np.uint8 and arr.shape == (3, 3, 2 * H, 2 * W)
+    return out
+
+
+def sr_checkpoint_cli(tmp: Path) -> dict:
+    """12e: ``train_baseline`` (64/8, 1 epoch at LR 32²) writes a checkpoint;
+    ``enhance --sr-checkpoint`` serves 2 frames at 270 × 480 in ``sr_only``
+    from it; with 4 RDBs it must exit with the mismatch message."""
+    ck = tmp / "ck"
+    _last_json(_run(["nerve_tpu_torch.train_baseline", "--epochs", "1", "--train-samples",
+                     "16", "--val-samples", "8", "--lr-size", "32", "--batch-size", "8",
+                     "--num-features", "64", "--num-blocks", "8", "--checkpoint-dir", ck]),
+               "train_baseline")
+    g = torch.Generator().manual_seed(25)
+    np.save(tmp / "small.npy", torch.randint(0, 256, (2, 270, 480, 3), generator=g,
+                                             dtype=torch.uint8).numpy())
+    base = ["nerve_tpu_torch.enhance", tmp / "small.npy", "-o", tmp / "sr.npy", "--mode",
+            "sr_only", "--sr-checkpoint", ck]
+    out = _last_json(_run(base), "enhance --sr-checkpoint")
+    bad = _run(base + ["--sr-blocks", "4"])
+    out["mismatch_rc"] = bad.returncode
+    out["mismatch_message"] = "don't match the engine's SR subtree" in bad.stderr
+    out["checkpoint_dir"] = str(ck)
+    return out
+
+
+def check_int8_engine(dev, card: str) -> None:
+    """12g and 12f: the int8 engine (``quantize_int8(chains=True)``, phase
+    8's calibration crop); its SR net in ``.train()`` on two 64² windows:
+    ``conv_chain_int8`` does not launch, ``rdb_int8`` does (8 blocks),
+    ``conv_chain`` runs the chain sites' float layers, and the output agrees
+    with the plain route's at the int8 limits; then its
+    ``streaming_step_pair`` against two ``streaming_step``s at the int8
+    limits."""
+    import copy
+
+    video, _mask = engine_inputs(dev, 5, H, W, seed=21)
+    eng = seeded_engine(dev, seed=0)
+    eng.quantize_int8(video[0, :, :, 270:810, 480:1440], chains=True)
+    sr = eng.engine.super_resolution
+    x = torch.rand((2, 3, 64, 64, 3), generator=torch.Generator().manual_seed(26)).to(dev)
+    model = copy.deepcopy(sr).train()
+    dispatch.reset_launches()
+    out = model(x)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in dispatch.launches.items() if v}
+    with plain_ops():
+        dispatch.reset_launches()
+        ref = copy.deepcopy(sr).train()(x)
+        plain_launched = sum(dispatch.launches.values())
+    d = (out.float() - ref.float()).abs()
+    print(f"int8 SR net in .train() (2 x 64^2 windows): launches {launched}; plain route "
+          f"{plain_launched}; kernels vs plain max|d| {d.max().item():.3e} (limit "
+          f"{INT8_MAX_ABS}), mean {d.mean().item():.3e} (limit {INT8_MEAN_ABS}); output "
+          f"requires grad {out.requires_grad}", flush=True)
+    if (launched.get("conv_chain_int8", 0) or launched.get("rdb_int8") != 8
+            or not launched.get("conv_chain") or plain_launched
+            or d.max() > INT8_MAX_ABS or d.mean() > INT8_MEAN_ABS or not out.requires_grad):
+        raise AssertionError("the int8 SR net in training mode")
+    with torch.inference_mode():
+        check_pair_step(sr, api.from_uint8(video), card, (INT8_MAX_ABS, INT8_MEAN_ABS),
+                        "int8 engine ")
+
+
+def check_recovery_step(dev, card: str) -> None:
+    """12a: one train step at full width, card against CPU."""
+    r = diag_recovery.step_against_cpu(dev)
+    over = {k: v for k, v in r["grads"].items() if v["rel_l2"] > RECOVERY_GRAD_L2}
+    farther = [k for k, v in over.items() if v["card_vs_f64"] > v["cpu_vs_f64"]]
+    w = r["grads"][r["worst_grad"]]
+    print(f"recovery step (base 64, window 2, T=5, batch 8, 64^2, float32) card vs CPU: "
+          f"loss {r['loss_card']!r} vs {r['loss_cpu']!r}, rel {r['loss_rel']:.3e} (limit "
+          f"{RECOVERY_LOSS_REL}); worst gradient {r['worst_grad']} rel L2 {w['rel_l2']:.3e} "
+          f"(limit {RECOVERY_GRAD_L2}; card vs float64 {w['card_vs_f64']:.3e}, CPU vs float64 "
+          f"{w['cpu_vs_f64']:.3e}); {len(over)} of {len(r['grads'])} gradients over the limit, "
+          f"{len(farther)} of them farther from float64 on the card than on the CPU; running "
+          f"statistics max|d| {r['stats_rel']:.3e} of max|CPU| at {r['worst_stat']} (limit "
+          f"{RECOVERY_STAT_REL}) on {card}", flush=True)
+    for k, v in sorted(over.items(), key=lambda kv: -kv[1]["rel_l2"])[:6]:
+        print(f"  {k}: rel L2 {v['rel_l2']:.3e}, card vs float64 {v['card_vs_f64']:.3e}, "
+              f"CPU vs float64 {v['cpu_vs_f64']:.3e}", flush=True)
+    if r["loss_rel"] > RECOVERY_LOSS_REL or farther or r["stats_rel"] > RECOVERY_STAT_REL:
+        raise AssertionError("the recovery step on the card differs from the CPU's")
+
+
+def check_recovery_training(dev, card: str) -> None:
+    """12b: 20 steps; ms per step, device ms, peak memory, launches."""
+    t = diag_recovery.step_timing(dev)
+    losses = t["losses"]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    print(f"recovery training 20 steps: losses {losses}; mean of the first 5 {first:.5f} -> "
+          f"last 5 {last:.5f}; {t['ms_per_step']:.2f} ms/step (median of 10 after 3; min "
+          f"{t['ms_min']:.2f}, max {t['ms_max']:.2f}), CUDA events "
+          f"{t['event_ms_per_step']:.2f} "
+          f"ms/step over 10 chained steps (utils.profiling.timed_chain; the card's pace, "
+          f"idle gaps included), peak "
+          f"{t['peak_bytes'] / 2**20:.1f} MiB allocated; hand-written kernel launches per "
+          f"step {t['launches_per_step']} (the recovery net is plain ATen/cuDNN) on {card}",
+          flush=True)
+    if not all(math.isfinite(v) for v in losses) or not last < first \
+            or t["launches_per_step"] != 0:
+        raise AssertionError("the recovery net did not learn, or launched a kernel")
+
+
+def check_bn_grads(dev, card: str) -> None:
+    """12h: the BatchNorm gradients of the training paths against float64."""
+    for name, r in diag_recovery.bn_grads_vs_float64(dev).items():
+        k, p = r["kernel"], r["plain"]
+        print(f"BN gradients {name} ({r['tensors']} tensors) vs float64 plain route: kernel "
+              f"route worst rel L2 {k['rel_l2']:.3e} ({k['rel_l2_at']}), max|d| "
+              f"{k['max_abs_rel']:.3e} of max|float64| ({k['max_abs_rel_at']}); plain route "
+              f"rel L2 {p['rel_l2']:.3e} ({p['rel_l2_at']}), max|d| {p['max_abs_rel']:.3e} "
+              f"({p['max_abs_rel_at']}); kernel within 2x of plain: {r['within_2x']} on {card}",
+              flush=True)
+        if not r["within_2x"]:
+            raise AssertionError(f"{name}: the kernel route's BatchNorm gradients are farther "
+                                 "from float64 than twice the plain route's")
+
+
+def run_recovery_phase(dev, card: str) -> None:
+    """Phase 12. The CLIs run as subprocesses beside the in-process checks;
+    every child is waited for (or killed at its timeout)."""
+    import concurrent.futures
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_nerve_cl_engine(dev, tmp / "engine.pth")
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            jobs = {"protocol": pool.submit(protocol_cli),
+                    "torch_checkpoint": pool.submit(torch_checkpoint_cli, tmp),
+                    "sr_checkpoint": pool.submit(sr_checkpoint_cli, tmp)}
+            check_recovery_step(dev, card)
+            check_recovery_training(dev, card)
+            check_int8_engine(dev, card)
+            check_bn_grads(dev, card)
+            res = {k: f.result() for k, f in jobs.items()}
+        p = res["protocol"]
+        beats = all(p["nerve_tpu_torch"][k] > p["zero_fill_baseline"][k]
+                    for k in p["zero_fill_baseline"])
+        print(f"recovery protocol CLI (1 epoch, 48/16 samples, base 64, 64px): masked PSNR "
+              f"{p['nerve_tpu_torch']} vs zero-fill {p['zero_fill_baseline']}; final loss "
+              f"{p['final_loss']:.5f}; train {p['nerve_tpu_torch_train_seconds']} s, wall "
+              f"{p['wall_s']:.1f} s, device {p['device']}", flush=True)
+        t = res["torch_checkpoint"]
+        print(f"enhance --torch-checkpoint 3 x 1080p -> 2160p bf16: {t['seconds']} s, launches "
+              f"{t['launches']}, output {t['output_shape']} {t['output_dtype']} on {card}",
+              flush=True)
+        s = res["sr_checkpoint"]
+        print(f"enhance --sr-checkpoint (train_baseline 64/8): output {s['output_shape']}, "
+              f"launches {s['launches']}; with 4 RDBs exit {s['mismatch_rc']}, mismatch message "
+              f"{s['mismatch_message']}", flush=True)
+        eng = api.EnhancementEngine(ENGINE_CONFIG.with_mode("sr_only"), seed=3, device=dev)
+        enhance.load_sr_checkpoint(eng.engine, s["checkpoint_dir"])
+        saved = CheckpointManager(s["checkpoint_dir"]).restore_raw()
+        loaded = all(torch.equal(q.cpu(), saved["params"][k])
+                     for k, q in eng.engine.super_resolution.named_parameters())
+        launches = t["launches"]
+        if not beats:
+            raise AssertionError("the protocol's masked PSNR does not beat zero-fill")
+        if not t["dtype_ok"] or launches.get("rdb") != 24 or not launches.get("correlation") \
+                or not launches.get("conv_chain") or t["backend"] != "cuda":
+            raise AssertionError(f"enhance --torch-checkpoint: {t}")
+        if s["backend"] != "cuda" or not s["mismatch_rc"] or not s["mismatch_message"] \
+                or not loaded:
+            raise AssertionError(f"enhance --sr-checkpoint: {s}, weights loaded {loaded}")
+
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -2010,8 +2416,11 @@ def main() -> int:
         run_continual_phase(dev, card)
     with phase("federated"):
         run_federated_phase(dev, card)
+    with phase("recovery and checkpoints"):
+        run_recovery_phase(dev, card)
     if args.profile:
         with phase("profile"):
+            diag_recovery.profile_step(dev, Path(args.profile))
             profile({"bf16": streamer(bf16_model), "int8": streamer(int8_model),
                      "lightweight": lambda frame: light_model(frame, "packed"),
                      **engine_steppers(dev)},

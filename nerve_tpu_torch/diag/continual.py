@@ -20,6 +20,15 @@
 * ``library_timing``: ms per second- and first-order meta step, per batch
   and per-sample Fisher pass (host clock to a synchronise, median of 3
   after one untimed), and the peak device memory of the second-order step.
+* ``float32_rows``: the float32 route at the meta step's shapes (window 3,
+  batch 4, 64²): the conv chain's ``conv_fma_kernel`` at the head (12 ×
+  64² × 3 → 64) and at 64 → 64 (4 × 64² × 64), one RDB block (5
+  ``conv_fma_kernel`` layers + ``lff_fma_kernel``) at 4 × 64² × 64 and the
+  correlation (d = 4) on the 8 neighbour pairs of 64² × 64: kernel, plain,
+  bound (67 TFLOP/s float32, 3.35 TB/s) and library ms (cuDNN ``F.conv2d``
+  with TF32 off; for the RDB its five convolutions and ``torch.matmul``,
+  products only, for the fusion; none for the correlation), CUDA events;
+  ``--small`` at 16².
 * ``profile_meta_step`` (``--profile DIR``): the device time of a
   second-order meta step by part (the hand-written kernels, the inner
   gradients' recompute of the plain versions, the rest), busy time, idle
@@ -39,20 +48,23 @@ from pathlib import Path
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
-from nerve_tpu_torch import continual
+from nerve_tpu_torch import continual, ops
 from nerve_tpu_torch.continual.params import detached
 from nerve_tpu_torch.diag import _common
+from nerve_tpu_torch.diag import conv as diag_conv
 from nerve_tpu_torch.diag import train as diag_train
-from nerve_tpu_torch.diag.conv import seed_all
+from nerve_tpu_torch.diag.conv import HBM_BYTES_PER_S, seed_all
 from nerve_tpu_torch.models import SuperResolutionNet
-from nerve_tpu_torch.ops import dispatch
+from nerve_tpu_torch.ops import conv_chain, correlation, dispatch, rdb
 from nerve_tpu_torch.train_continual import sr_loss
 from nerve_tpu_torch.utils import data as data_lib
 
 FEATURES, BLOCKS, LR_SIZE, BATCH = 64, 8, 64, 4
 SMALL = (16, 2, 16, 2)  # features, blocks, LR size, batch
 INNER_LR, OUTER_LR = 0.01, 1e-3
+FP32_PEAK_OPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 
 
 def hvp(fn, leaves, g, vs):
@@ -291,6 +303,77 @@ def profile_meta_step(model, batches, out_dir: Path, steps: int = 2) -> dict:
     return result
 
 
+# --------------------------------------------------------------------------- #
+# The float32 route of the kernels at the meta step's shapes
+# --------------------------------------------------------------------------- #
+def _bound(flops: float, nbytes: float) -> tuple:
+    t_ops, t_bytes = flops / FP32_PEAK_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def float32_rows(dev, reps: int = 25, small: bool = False) -> Dict[str, dict]:
+    """{case: kernel / plain / bound / library ms, max|err|} (module doc)."""
+    g = torch.Generator().manual_seed(12)
+    hw = 16 if small else 64
+    out = {}
+
+    def row(name, kern, plain, lib, flops, nbytes):
+        dispatch.reset_launches()
+        y = kern()
+        launched = {k: v for k, v in dispatch.launches.items() if v}
+        ref = plain().float()
+        err = (y.float() - ref).abs().max().item()
+        bound, by = _bound(flops, nbytes)
+        out[name] = {"kernel_ms": _common.median_ms(kern, dev, reps),
+                     "plain_ms": _common.median_ms(plain, dev, reps),
+                     "library_ms": None if lib is None else _common.median_ms(lib, dev, reps),
+                     "bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
+                     "max_abs_err": err, "rel_err": err / ref.abs().max().item(),
+                     "launches": launched}
+        r = out[name]
+        lib_txt = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"float32 {name}: kernel {r['kernel_ms']:.4f} ms ({launched}), plain "
+              f"{r['plain_ms']:.4f}, library {lib_txt}, bound {bound:.4f} ({by}); max|err| "
+              f"{err:.3e}", flush=True)
+
+    for name, (n, cin) in {"conv head 3->64": (12, 3), "conv 64->64": (4, 64)}.items():
+        x = torch.rand((n, hw, hw, cin), generator=g).to(dev)
+        w = (torch.randn((3, 3, cin, 64), generator=g) * (9 * cin) ** -0.5).to(dev)
+        layer = [(w, (0.1 * torch.randn(64, generator=g)).to(dev), "relu")]
+        cudnn = diag_conv.cudnn_chain(layer, torch.float32)
+        npix = n * hw * hw
+        row(f"{name} ({n}x{hw}x{hw})", lambda: ops.conv_chain_apply(x, layer),
+            lambda: conv_chain.conv_chain_plain(x, layer), lambda: cudnn(x),
+            2 * 9 * cin * 64 * npix, 4 * (x.numel() + w.numel() + 64 + npix * 64))
+
+    x = torch.rand((4, hw, hw, 64), generator=g).to(dev)
+    params = _common.rdb_params(g, 64, dev)
+    npix = 4 * hw * hw
+    dense = [(params[2 * i], params[2 * i + 1]) for i in range(5)]
+    lw, lb = params[10], params[11]
+    cudnn_w = [(w.permute(3, 2, 0, 1).contiguous(), b) for w, b in dense]
+
+    def library_block():
+        cat = x.permute(0, 3, 1, 2)
+        for w, b in cudnn_w:
+            cat = torch.cat([cat, torch.relu(F.conv2d(cat, w, b, padding=1))], 1)
+        flat = cat.permute(0, 2, 3, 1).reshape(-1, cat.shape[1])
+        return torch.matmul(flat, lw).reshape(4, hw, hw, 64) * 0.2 + x
+
+    flops = sum(2 * 9 * w.shape[2] * 32 * npix for w, _b in dense) + 2 * lw.numel() * npix
+    nbytes = 4 * (2 * x.numel() + sum(p.numel() for p in params))
+    row(f"rdb block ({4}x{hw}x{hw}x64)", lambda: ops.rdb_chain_apply(x, [params]),
+        lambda: rdb.rdb_chain_plain(x, [params]), library_block, flops, nbytes)
+
+    f1 = torch.randn((8, hw, hw, 64), generator=g).to(dev)
+    f2 = torch.randn((8, hw, hw, 64), generator=g).to(dev)
+    npix = 8 * hw * hw
+    row(f"correlation d=4 ({8}x{hw}x{hw}x64)", lambda: ops.correlation_volume(f1, f2, 4),
+        lambda: correlation.correlation_plain(f1, f2, 4), None, 2 * 81 * 64 * npix,
+        4 * (f1.numel() + f2.numel() + 81 * npix))
+    return out
+
+
 def main(argv=None) -> dict:
     p = _common.parser(__doc__.splitlines()[0])
     p.add_argument("--profile", metavar="DIR",
@@ -305,7 +388,9 @@ def main(argv=None) -> dict:
     result = {"maml_launches": run["maml launches"],
               "maml_vs_fomaml_rel_l2": rel_l2(run["fomaml meta-gradient"],
                                               run["maml meta-gradient"]),
-              "timing": library_timing(model, batches)}
+              "timing": library_timing(model, batches),
+              "float32_rows": float32_rows(dev, max(args.reps, 25 if dev.type == "cuda" else 1),
+                                           args.small)}
     print(f"timing: {json.dumps(result['timing'])}", flush=True)
     if args.profile:
         if dev.type != "cuda":

@@ -6,8 +6,8 @@
   backward apart, for the client's train step (live BatchNorm) and for the
   simulation's step (the eval forward on the tape, statistics held).
 * ``compare_routes``: both steps on the kernel route and on the plain route
-  (``plain_route``: ``ops.conv_chain_apply`` replaced by its plain
-  version): the output, every gradient and every new running statistic,
+  (``plain_route``: the training forwards' kernel ops replaced by their
+  plain versions): the output, every gradient and every new running statistic,
   max|Δ| and max|plain|.
 * ``client_steps`` / ``round_run``: local AdamW steps of a client, and one
   FedAvg round, from the same start on either route.
@@ -55,7 +55,7 @@ from nerve_tpu_torch.federated import MeshFederatedSimulation, VideoEnhancementC
 from nerve_tpu_torch.federated.privacy import PrivacyConfig
 from nerve_tpu_torch.federated.simulation import client_deltas
 from nerve_tpu_torch.models import LightweightSuperResolution
-from nerve_tpu_torch.ops import conv_chain, dispatch
+from nerve_tpu_torch.ops import conv_chain, correlation, dispatch, rdb
 from nerve_tpu_torch.training import global_norm
 from nerve_tpu_torch.train_federated import (
     LR_SIZE,
@@ -73,16 +73,25 @@ SMALL = dict(clients=2, local_steps=2, samples=8, fit_lr_sizes=(8,))
 KINDS = ("train", "frozen_stats")
 
 
+# The kernel ops of the training forwards and their plain versions (the
+# lightweight model's training runs only the first).
+PLAIN_OPS = {"conv_chain_apply": conv_chain.conv_chain_plain,
+             "rdb_chain_apply": rdb.rdb_chain_plain,
+             "correlation_volume": correlation.correlation_plain}
+
+
 @contextlib.contextmanager
 def plain_route():
-    """The models' conv chains through ``conv_chain_plain`` (the only kernel
-    op of the lightweight model's training)."""
-    saved = ops.conv_chain_apply
-    ops.conv_chain_apply = conv_chain.conv_chain_plain
+    """The models' training kernel ops (``PLAIN_OPS``) through their plain
+    versions."""
+    saved = {k: getattr(ops, k) for k in PLAIN_OPS}
+    for k, fn in PLAIN_OPS.items():
+        setattr(ops, k, fn)
     try:
         yield
     finally:
-        ops.conv_chain_apply = saved
+        for k, fn in saved.items():
+            setattr(ops, k, fn)
 
 
 def fed_model(dev, seed: int = 0) -> LightweightSuperResolution:

@@ -6,9 +6,22 @@ Counterpart of ``experiments/enhance.py``. Input, by extension: ``.npy``
 (T, C, H, W) or (T, H, W, C), uint8 or float in [0, 1]; ``.npz`` the same
 under ``video`` (and optional ``masks``); ``.pt`` a tensor or
 ``{"video": ..., "masks": ...}``. ``--masks`` (.npy, (T, 1, H, W)) overrides
-masks from the file. The engine starts from fresh weights drawn from
-``--seed``. Output: a ``.npy`` video, uint8 unless ``--float``, and one
-JSON summary line on stdout. Runs on the card (``--device cuda``, the
+masks from the file.
+
+Weights:
+
+* ``--torch-checkpoint``: a nerve_cl ``EnhancementEngine`` (or, with
+  ``--adaptive``, ``AdaptiveEnhancementEngine``) state dict, bare or under
+  ``"model_state_dict"``, imported strictly by ``models.import_torch``;
+* ``--sr-checkpoint``: a directory that ``python -m
+  nerve_tpu_torch.train_baseline`` wrote (``utils.checkpoint``): its
+  latest step's SR parameters and BatchNorm statistics go into the
+  engine's ``super_resolution`` net, whose configuration must match;
+* neither: fresh weights drawn from ``--seed``.
+
+Output: a ``.npy`` video, uint8 unless ``--float``, and one JSON summary
+line on stdout (with the kernels' launches in the process, none on the
+CPU). Runs on the card (``--device cuda``, the
 default; it raises without one) or on the CPU (``--device cpu``).
 """
 
@@ -22,6 +35,8 @@ import time
 
 import numpy as np
 import torch
+
+from nerve_tpu_torch.ops import dispatch
 
 
 def load_video(path: str):
@@ -67,7 +82,45 @@ def build_engine(args):
         recovery_temporal_window=args.recovery_window,
     ).with_mode(args.mode)
     cls = api.AdaptiveEnhancementEngine if args.adaptive else api.EnhancementEngine
-    return cls(cfg, seed=args.seed, dtype=getattr(torch, args.dtype), device=args.device)
+    engine = cls(cfg, seed=args.seed, dtype=getattr(torch, args.dtype), device=args.device)
+    if args.torch_checkpoint:
+        from nerve_tpu_torch.models import import_torch
+
+        sd = import_torch.load_state_dict(args.torch_checkpoint)
+        importer = (import_torch.import_adaptive_engine if args.adaptive
+                    else import_torch.import_enhancement_engine)
+        engine.load_variables(importer(sd, engine.config))
+    elif args.sr_checkpoint:
+        load_sr_checkpoint(engine.engine, args.sr_checkpoint)
+    return engine
+
+
+SR_MISMATCH = ("--sr-checkpoint params don't match the engine's SR subtree; pass the "
+               "--scale/--sr-features/--sr-blocks/--sr-window the checkpoint was trained "
+               "with (train_baseline's defaults: --sr-features 32 --sr-blocks 4).")
+
+
+@torch.no_grad()
+def load_sr_checkpoint(engine, directory: str) -> None:
+    """The latest step that ``train_baseline`` saved in ``directory``: its
+    parameters and BatchNorm statistics into ``engine.super_resolution``;
+    exits with ``SR_MISMATCH`` where names or shapes differ."""
+    from nerve_tpu_torch.models.layers import batch_stats
+    from nerve_tpu_torch.utils.checkpoint import CheckpointManager
+
+    sr = getattr(engine, "super_resolution", None)
+    if sr is None or engine.config.use_lightweight_sr:
+        raise SystemExit("--sr-checkpoint loads the flagship SR net: use --mode full or sr_only")
+    restored = CheckpointManager(directory).restore_raw()
+    targets = {"params": dict(sr.named_parameters()), "batch_stats": batch_stats(sr)}
+    for part, tensors in targets.items():
+        want = {k: tuple(t.shape) for k, t in tensors.items()}
+        got = {k: tuple(v.shape) for k, v in restored.get(part, {}).items()}
+        if want != got:
+            raise SystemExit(SR_MISMATCH)
+    for part, tensors in targets.items():
+        for k, t in tensors.items():
+            t.copy_(restored[part][k])
 
 
 def main(argv=None) -> int:
@@ -97,6 +150,10 @@ def main(argv=None) -> int:
     p.add_argument("--int8", default="off", choices=["off", "rdb", "full"],
                    help="int8 SR serving: 'rdb' the RDB stack, 'full' every conv-chain "
                         "site too; scales calibrate on the video's first window")
+    p.add_argument("--torch-checkpoint", default=None,
+                   help="nerve_cl EnhancementEngine state_dict (.pth)")
+    p.add_argument("--sr-checkpoint", default=None,
+                   help="checkpoint directory of python -m nerve_tpu_torch.train_baseline")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
@@ -144,6 +201,7 @@ def main(argv=None) -> int:
         "fps_including_compile": round(t / wall, 2),
         "output": args.output,
         "backend": engine.device.type,
+        "launches": {k: v for k, v in dispatch.launches.items() if v},
     }))
     return 0
 

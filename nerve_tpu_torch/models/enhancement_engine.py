@@ -1,5 +1,5 @@
 """The enhancement pipeline: frame recovery → super-resolution → strength
-blend (NHWC, inference only).
+blend (NHWC).
 
 Counterpart of ``nerve_tpu/models/enhancement_engine.py``:
 
@@ -22,7 +22,14 @@ Parameters carry the flax names (``frame_recovery``, ``super_resolution``,
 ``enhancement_strength``; ``engine``, ``complexity_fc1``,
 ``complexity_fc2``), so ``models.bridge`` loads a flax tree strictly. The
 SR net runs the port's kernels on the card; recovery is plain ATen/cuDNN.
-Built on the card unless ``device="cpu"``; training mode raises.
+Built on the card unless ``device="cpu"``.
+
+In eval mode a call runs under ``torch.inference_mode``. ``.train()`` is
+the reference's ``train=True``: the call runs under autograd, the recovery
+net with live BatchNorm and the SR net's training forward (its kernel ops
+as autograd Functions, its feature body on live BatchNorm; an int8 SR net
+runs its chain sites in float and its RDB stack in int8, as the reference
+does), and the BatchNorm running statistics move.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import torch.nn as nn
 
 from nerve_tpu_torch import ops
 from nerve_tpu_torch.models.frame_recovery import FrameRecoveryNet
-from nerve_tpu_torch.models.layers import DenseParams, check_inference
+from nerve_tpu_torch.models.layers import DenseParams, grad_mode
 from nerve_tpu_torch.models.super_resolution import (
     LightweightSuperResolution,
     SuperResolutionNet,
@@ -123,11 +130,13 @@ class EnhancementEngine(nn.Module):
                     quantized_chains=cfg.sr_quantized_chains, **kw)
         self.enhancement_strength = nn.Parameter(torch.ones(1, device=dev))
 
-    @torch.inference_mode()
     def forward(self, frames: torch.Tensor, center_idx: Optional[int] = None,
                 corruption_mask: Optional[torch.Tensor] = None,
                 enhancement_strength=None) -> Dict[str, torch.Tensor]:
-        check_inference(self)
+        with grad_mode(self):
+            return self._forward(frames, center_idx, corruption_mask, enhancement_strength)
+
+    def _forward(self, frames, center_idx, corruption_mask, enhancement_strength):
         cfg = self.config
         b, t, h, w, c = frames.shape
         if center_idx is None:
@@ -165,7 +174,6 @@ class EnhancementEngine(nn.Module):
         results["enhanced"] = current
         return results
 
-    @torch.inference_mode()
     def enhance_video(self, video: torch.Tensor, corruption_masks: Optional[torch.Tensor] = None,
                       frame_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                       ) -> torch.Tensor:
@@ -177,12 +185,13 @@ class EnhancementEngine(nn.Module):
         t = video.shape[1]
         half = self.config.window // 2
         outs = []
-        for tc in range(t):
-            idx = torch.arange(tc - half, tc + half + 1).clamp_(0, t - 1).tolist()
-            mask = None if corruption_masks is None else corruption_masks[:, tc]
-            out = self(video[:, idx], half, mask)["enhanced"]
-            outs.append(out if frame_fn is None else frame_fn(out))
-        return torch.stack(outs, dim=1)
+        with grad_mode(self):
+            for tc in range(t):
+                idx = torch.arange(tc - half, tc + half + 1).clamp_(0, t - 1).tolist()
+                mask = None if corruption_masks is None else corruption_masks[:, tc]
+                out = self._forward(video[:, idx], half, mask, None)["enhanced"]
+                outs.append(out if frame_fn is None else frame_fn(out))
+            return torch.stack(outs, dim=1)
 
 
 class AdaptiveEnhancementEngine(nn.Module):
@@ -204,19 +213,24 @@ class AdaptiveEnhancementEngine(nn.Module):
         self.complexity_fc1 = DenseParams(64, 8 * 8 * in_channels, dev, generator)
         self.complexity_fc2 = DenseParams(1, 64, dev, generator)
 
-    @torch.inference_mode()
     def estimate_complexity(self, frame: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) → (B, 1) complexity in [0, 1], float32."""
+        with grad_mode(self):
+            return self._complexity(frame)
+
+    def _complexity(self, frame: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         y = ops.adaptive_avg_pool2d(frame.to(dt), 8)
         y = torch.relu(self.complexity_fc1(y.reshape(y.shape[0], -1), dt))
         return torch.sigmoid(self.complexity_fc2(y, dt)).float()
 
-    @torch.inference_mode()
     def forward(self, frames: torch.Tensor, resource_budget: float = 1.0,
                 user_quality_preference: float = 0.5) -> Dict[str, torch.Tensor]:
-        check_inference(self)
-        complexity = self.estimate_complexity(frames[:, frames.shape[1] // 2])
+        with grad_mode(self):
+            return self._forward(frames, resource_budget, user_quality_preference)
+
+    def _forward(self, frames, resource_budget, user_quality_preference):
+        complexity = self._complexity(frames[:, frames.shape[1] // 2])
         strength = (0.3 * torch.tensor(resource_budget, dtype=torch.float32)
                     + 0.3 * torch.tensor(user_quality_preference, dtype=torch.float32)
                     ).to(frames.device) + 0.4 * complexity.mean()

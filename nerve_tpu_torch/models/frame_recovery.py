@@ -1,4 +1,4 @@
-"""Frame recovery (inpainting) network, NHWC, inference only.
+"""Frame recovery (inpainting) network, NHWC.
 
 Counterpart of ``nerve_tpu/models/frame_recovery.py``: a spatial encoder
 over the masked frame and its mask (7×7/2 stem, max pool, three residual
@@ -12,8 +12,16 @@ Parameters carry the flax tree's names (``models.bridge``). Everything is
 plain ATen/cuDNN, as the reference runs it on XLA, in the module's dtype
 with flax's roundings (``models.layers.conv_nhwc``, ``batch_norm``); the
 blend is float32. The model is built on the card unless the caller passes
-``device="cpu"``; training mode raises (its live BatchNorm, in
-``ResidualBlock`` and ``TemporalConv3D``, is not ported yet).
+``device="cpu"``.
+
+In eval mode the forward runs under ``torch.inference_mode`` with every
+BatchNorm on its running statistics. In training mode it runs under
+autograd with every BatchNorm live (the stem's, the stage entries', the
+residual blocks', the (2+1)D convolutions' over (B, T, H, W) and the
+decoder's; ``layers.batch_norm_train``): each call moves the running
+statistics, the module's buffers, to ``0.9 · old + 0.1 · batch``, as the
+reference's ``apply(..., train=True, mutable=["batch_stats"])`` returns
+them.
 """
 
 from __future__ import annotations
@@ -31,10 +39,10 @@ from nerve_tpu_torch.models.layers import (
     KernelParams,
     ResidualBlock,
     TemporalConv3D,
-    batch_norm,
-    check_inference,
     conv_nhwc,
     conv_transpose_nhwc,
+    grad_mode,
+    norm,
 )
 from nerve_tpu_torch.models.super_resolution import resolve_device
 
@@ -65,12 +73,12 @@ class SpatialEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         dt = self.dtype
         x = conv_nhwc(x.to(dt), self.stem.kernel, stride=2, padding=3)
-        x = ops.max_pool2d(torch.relu(batch_norm(x, self.stem_bn, dt)), 3, 2, 1)
+        x = ops.max_pool2d(torch.relu(norm(x, self.stem_bn, dt, self.training)), 3, 2, 1)
         skips = [x]
         for name, stride in (("stage1", 1), ("stage2", 2), ("stage3", 2)):
             if hasattr(self, f"{name}_down"):
                 x = conv_nhwc(x, getattr(self, f"{name}_down").kernel, stride=stride)
-                x = batch_norm(x, getattr(self, f"{name}_down_bn"), dt)
+                x = norm(x, getattr(self, f"{name}_down_bn"), dt, self.training)
             for i in range(self.num_blocks):
                 x = getattr(self, f"{name}_block{i}")(x)
             if name != "stage3":
@@ -129,8 +137,9 @@ class FusionModule(nn.Module):
                             self.align.kernel, self.align.bias)
         a = torch.relu(conv_nhwc(aligned, self.attn0.kernel, self.attn0.bias))
         logits = conv_nhwc(a, self.attn1.kernel, self.attn1.bias)
-        # jax.nn.softmax in the dtype: exp(x - max) over its sum.
-        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        # jax.nn.softmax in the dtype: exp(x - max) over its sum, the max
+        # held out of the gradient.
+        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
         attn = e / e.sum(dim=-1, keepdim=True)
         fused = (attn[..., 0:1] * conv_nhwc(spatial.to(dt), self.spatial_proj.kernel)
                  + attn[..., 1:2] * conv_nhwc(temporal.to(dt), self.temporal_proj.kernel))
@@ -161,7 +170,7 @@ class Decoder(nn.Module):
         x = x.to(dt)
         for i in range(1, 5):
             x = conv_transpose_nhwc(x, getattr(self, f"up{i}").kernel)
-            x = torch.relu(batch_norm(x, getattr(self, f"up{i}_bn"), dt))
+            x = torch.relu(norm(x, getattr(self, f"up{i}_bn"), dt, self.training))
         return torch.tanh(conv_nhwc(x, self.final.kernel, self.final.bias, padding=1))
 
 
@@ -170,7 +179,9 @@ class FrameRecoveryNet(nn.Module):
 
     ``forward(corrupted (B, H, W, C), refs (B, T, H, W, C), mask (B, H, W,
     1) or None)`` → (B, H, W, C) float32, 1 in the mask marking corrupted
-    pixels; pixels outside the mask are the input's, exactly.
+    pixels; pixels outside the mask are the input's, exactly. Under
+    ``torch.inference_mode`` in eval mode, under autograd with live
+    BatchNorm in training mode (see the module doc).
     """
 
     def __init__(self, in_channels: int = 3, base_channels: int = 64,
@@ -186,10 +197,13 @@ class FrameRecoveryNet(nn.Module):
         self.fusion = FusionModule(4 * bc, 4 * bc, 4 * bc, **kw)
         self.decoder = Decoder(4 * bc, in_channels, bc, **kw)
 
-    @torch.inference_mode()
     def forward(self, corrupted: torch.Tensor, refs: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        check_inference(self)
+        with grad_mode(self):
+            return self._forward(corrupted, refs, mask)
+
+    def _forward(self, corrupted: torch.Tensor, refs: torch.Tensor,
+                 mask: Optional[torch.Tensor]) -> torch.Tensor:
         b, h, w, _c = corrupted.shape
         if mask is None:
             mask = corrupted.new_zeros((b, h, w, 1))

@@ -7,17 +7,19 @@ variable tree onto ``state_dict()`` name for name. Forwards cast weights
 and activations to the module's ``dtype`` where the reference does.
 Initial values are drawn from ``generator`` (normal, lecun/he scale, zero
 biases); they are placeholders until real weights are loaded.
-They serve inference; ``DepthwiseSeparableConv`` also trains (live
-BatchNorm), and the conv-chain modules train through the ops' autograd
-Functions. ``ResidualBlock``, ``TemporalConv3D`` and the int8 sites are
-inference only.
+They serve inference and train: in training mode ``DepthwiseSeparableConv``,
+``ResidualBlock`` and ``TemporalConv3D`` run live BatchNorm, the conv-chain
+modules train through the ops' autograd Functions, and an int8 chain site
+runs its float layers (as the reference passes "off" under ``train``).
 
 Layers the reference runs on XLA (the recovery network's convolutions,
 BatchNorm, ``ResidualBlock``, ``TemporalConv3D``) run plain ATen/cuDNN
 here, rounding where flax rounds: a convolution in the module's dtype, then
 its bias added in that dtype; BatchNorm in float32 from the running
 statistics, ``(x - mean) · (rsqrt(var + eps) · scale) + bias``, cast to the
-dtype (``batch_norm``).
+dtype (``batch_norm``); in training mode the same from the batch's
+statistics (``batch_norm_train``, flax's ``nn.BatchNorm(use_running_average
+=False)``), which also moves the running statistics.
 
 The int8 state of a quantised conv-chain site lives in buffers under the
 name of the flax ``"quant"`` collection's entry (``qhead``, ``qflow``,
@@ -27,6 +29,7 @@ and keeps its weights packed for the int8 kernel (``QuantState.packed``).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -168,14 +171,13 @@ def maybe_quantized_chain(mod: nn.Module, name: str, x, entries,
       state ``name``, and return the exact result, so that later sites
       calibrate on the unquantised distribution.
 
-    int8 serving is inference only: a module in training mode raises.
+    A module in training mode runs the exact chain whatever ``chain_quant``
+    says, as each of the reference's sites passes "off" when ``train`` is set.
     """
-    if chain_quant == "off":
-        return ops.conv_chain_apply(x, entries)
     if chain_quant not in CHAIN_QUANT_MODES:
         raise ValueError(f"unknown chain_quant {chain_quant!r}")
-    if mod.training:
-        raise RuntimeError("int8 chains are inference only: call .eval() first")
+    if chain_quant == "off" or mod.training:
+        return ops.conv_chain_apply(x, entries)
     state = getattr(mod, name)
     params = _float_entries(entries)
     if chain_quant == "calibrate":
@@ -224,13 +226,6 @@ def batch_stats(module: nn.Module) -> dict:
             if isinstance(mod, BNParams) for k in ("mean", "var")}
 
 
-def check_inference(mod: nn.Module) -> None:
-    """Raise if ``mod`` is in training mode (the recovery network's live
-    BatchNorm is not ported)."""
-    if mod.training:
-        raise RuntimeError(f"{type(mod).__name__} is inference only: call .eval() first")
-
-
 def conv_nhwc(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None,
               stride: int = 1, padding: int = 0, groups: int = 1) -> torch.Tensor:
     """flax ``nn.Conv`` on (B, H, W, C) ``x`` with an HWIO ``kernel``, in
@@ -264,6 +259,33 @@ def batch_norm(x: torch.Tensor, bn: "BNParams", dtype: torch.dtype) -> torch.Ten
     mul = torch.rsqrt(bn.var + BN_EPS) * bn.scale
     y = x.to(torch.float32, copy=True)
     return y.sub_(bn.mean).mul_(mul).add_(bn.bias).to(dtype)
+
+
+def batch_norm_train(x: torch.Tensor, bn: "BNParams", dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.BatchNorm(use_running_average=False, momentum=0.9,
+    dtype=dtype)`` under autograd: the batch's statistics in float32 (at
+    least: float64 for float64 input, as flax promotes) over
+    every axis but the last, the variance flax's ``E[x²] - E[x]²`` clipped
+    at 0 (biased), ``(x - mean) · (rsqrt(var + eps) · scale) + bias`` cast to
+    ``dtype``; the running statistics become ``0.9 · old + 0.1 · batch``."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    axes = tuple(range(x.dim() - 1))
+    m = xf.mean(axes)
+    v = torch.clamp((xf * xf).mean(axes) - m * m, min=0.0)
+    with torch.no_grad():
+        bn.mean.copy_(0.9 * bn.mean + 0.1 * m)
+        bn.var.copy_(0.9 * bn.var + 0.1 * v)
+    return ((xf - m) * (torch.rsqrt(v + BN_EPS) * bn.scale) + bn.bias).to(dtype)
+
+
+def grad_mode(module: nn.Module):
+    """Autograd in training mode, ``torch.inference_mode`` in eval mode."""
+    return contextlib.nullcontext() if module.training else torch.inference_mode()
+
+
+def norm(x: torch.Tensor, bn: "BNParams", dtype: torch.dtype, training: bool) -> torch.Tensor:
+    """``batch_norm_train`` in training mode, else ``batch_norm``."""
+    return batch_norm_train(x, bn, dtype) if training else batch_norm(x, bn, dtype)
 
 
 class DenseParams(ConvParams):
@@ -336,7 +358,7 @@ class DepthwiseSeparableConv(nn.Module):
         bn = self.BatchNorm_0
         y = conv_nhwc(x.to(dt), self.depthwise.kernel, padding=1, groups=x.shape[-1])
         y = conv_nhwc(y, self.pointwise.kernel)
-        yf = y.float()
+        yf = y.to(torch.promote_types(dt, torch.float32))  # at least float32
         m = yf.mean(dim=(0, 1, 2))
         v = (yf - m).square().mean(dim=(0, 1, 2))
         with torch.no_grad():
@@ -442,7 +464,8 @@ class ResidualBlock(nn.Module):
     own BatchNorm and relu, ``DepthwiseSeparableConv.unfolded``), a
     depthwise 3×3 ``conv2_dw``, a 1×1 ``conv2_pw``, ``bn2``, then add and
     relu. Otherwise 3×3 ``conv1``, ``bn1``, relu, 3×3 ``conv2``, ``bn2``,
-    add, relu. Plain ATen/cuDNN in ``dtype``."""
+    add, relu. Plain ATen/cuDNN in ``dtype``; in training mode every
+    BatchNorm is live (``conv1``'s ``train_forward``, ``batch_norm_train``)."""
 
     def __init__(self, channels: int, use_efficient: bool = True,
                  dtype: torch.dtype = torch.float32, device=None, generator=None):
@@ -462,16 +485,16 @@ class ResidualBlock(nn.Module):
         self.bn2 = BNParams(c, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
+        dt, live = self.dtype, self.training
         if self.use_efficient:
-            out = self.conv1.unfolded(x)
+            out = self.conv1.train_forward(x) if live else self.conv1.unfolded(x)
             out = conv_nhwc(out, self.conv2_dw.kernel, padding=1, groups=x.shape[-1])
             out = conv_nhwc(out, self.conv2_pw.kernel)
         else:
             out = conv_nhwc(x.to(dt), self.conv1.kernel, padding=1)
-            out = torch.relu(batch_norm(out, self.bn1, dt))
+            out = torch.relu(norm(out, self.bn1, dt, live))
             out = conv_nhwc(out, self.conv2.kernel, padding=1)
-        return torch.relu(batch_norm(out, self.bn2, dt) + x)
+        return torch.relu(norm(out, self.bn2, dt, live) + x)
 
 
 def temporal_mid_channels(in_ch: int, out_ch: int, tk: int) -> int:
@@ -485,7 +508,9 @@ class TemporalConv3D(nn.Module):
     ``spatial_bn``, relu, a T×1×1 ``temporal`` conv (zero padded in time),
     ``temporal_bn``, relu; kernels kept as flax's 5-D (kt, kh, kw, in, out).
     The spatial conv runs as a 3×3 conv over B·T frames, the temporal one as
-    a (kt, 1) conv over (T, H·W) planes: plain cuDNN/ATen in ``dtype``."""
+    a (kt, 1) conv over (T, H·W) planes: plain cuDNN/ATen in ``dtype``. In
+    training mode both BatchNorms are live, their statistics over (B, T, H,
+    W)."""
 
     def __init__(self, in_features: int, features: int, temporal_kernel: int = 3,
                  dtype: torch.dtype = torch.float32, device=None, generator=None):
@@ -503,8 +528,9 @@ class TemporalConv3D(nn.Module):
         dt = self.dtype
         b, t, h, w, c = x.shape
         y = conv_nhwc(x.reshape(b * t, h, w, c).to(dt), self.spatial.kernel[0], padding=1)
-        y = torch.relu(batch_norm(y, self.spatial_bn, dt)).reshape(b, t, h * w, -1)
+        live = self.training
+        y = torch.relu(norm(y, self.spatial_bn, dt, live)).reshape(b, t, h * w, -1)
         tp = self.temporal_kernel // 2
         y = conv_nhwc(y, self.temporal.kernel[:, 0], padding=(tp, 0))
-        y = torch.relu(batch_norm(y, self.temporal_bn, dt))
+        y = torch.relu(norm(y, self.temporal_bn, dt, live))
         return y.reshape(b, t, h, w, -1)

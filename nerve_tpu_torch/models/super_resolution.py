@@ -22,8 +22,9 @@ CUDA tensors they run the hand-written kernels.
 int8 serving (``quantized``: the RDB stack; ``quantized_chains``: the
 feature head, flow head, attention logits, gff and upsampler convs) reads
 static scales from buffers that ``models.quantize.quantize_sr`` calibrates
-or ``models.bridge`` loads from the JAX ``"quant"`` collection. It is
-inference only: a quantised site raises in training mode.
+or ``models.bridge`` loads from the JAX ``"quant"`` collection. In
+training mode the chain sites run their float layers and the RDB stack
+stays int8 (a constant under autograd), as in the reference.
 
 ``SuperResolutionNet`` also trains: in ``model.train()`` its forward runs
 under autograd, the feature body's three depthwise-separable blocks one
@@ -99,8 +100,10 @@ class FeatureExtractor(nn.Module):
 def _epilogue(bicubic_ch: torch.Tensor, residual_ch: torch.Tensor, scale: int,
               dtype: torch.dtype, output_layout: str) -> torch.Tensor:
     """Bicubic base + residual in phase-channel space, clamped to [0, 1] in
-    float32, cast to ``dtype``, then one depth-to-space into the layout."""
-    summed = bicubic_ch.float() + residual_ch.float()
+    float32 (float64 for a float64 model), cast to ``dtype``, then one
+    depth-to-space into the layout."""
+    ct = torch.promote_types(residual_ch.dtype, torch.float32)
+    summed = bicubic_ch.to(ct) + residual_ch.to(ct)
     out_ch = torch.minimum(torch.maximum(summed, summed.new_zeros(())),
                            summed.new_ones(())).to(dtype)
     if output_layout == "planar":
@@ -194,7 +197,8 @@ class RDBStack(nn.Module):
     (``rdb{b}_dense{i}_kernel`` …, LFF as a 2-D ``(C + L·G, C)`` matrix).
 
     ``quantized`` serves the stack in int8 from the state ``qchain`` (the
-    JAX wire format, ``ops.rdb_int8``; unit scales until calibrated). With
+    JAX wire format, ``ops.rdb_int8``; unit scales until calibrated), also
+    in training mode, where its result carries no gradient. With
     ``quant_calibrate`` set, a forward computes the scales from its input,
     quantises into ``qchain`` and returns the exact result. Quantising and
     serving both follow ``rdb_int8.PER_CHANNEL_INT8`` as it stands at the
@@ -243,8 +247,6 @@ class RDBStack(nn.Module):
         params_list = [self.block_params(b) for b in range(self.num_blocks)]
         if not self.quantized:
             return ops.rdb_chain_apply(x, params_list)
-        if self.training:
-            raise RuntimeError("the int8 RDB stack is inference only: call .eval() first")
         if self.quant_calibrate:
             params_f32 = self._params_f32()
             scales = rdb_int8.calibrate_rdb_chain(x.float(), params_f32)
@@ -252,10 +254,14 @@ class RDBStack(nn.Module):
                 params_f32, scales, per_channel=rdb_int8.PER_CHANNEL_INT8))
             return ops.rdb_chain_apply(x, params_list)
         qchain, int32_taps = self.qchain.value(), rdb_int8.PER_CHANNEL_INT8
-        return ops.rdb_chain_int8_apply(
-            x, qchain, out_dtype=x.dtype, int32_taps=int32_taps,
-            packed=self.qchain.packed(int32_taps,
-                                      lambda: rdb_int8.packed_rdb_chain(qchain, int32_taps)))
+        # int8 in training mode too, as the reference's stack (it takes no
+        # ``train``): its weights are not parameters and the input's
+        # rounding passes no gradient, so the result is a constant.
+        with torch.no_grad():
+            return ops.rdb_chain_int8_apply(
+                x, qchain, out_dtype=x.dtype, int32_taps=int32_taps,
+                packed=self.qchain.packed(int32_taps,
+                                          lambda: rdb_int8.packed_rdb_chain(qchain, int32_taps)))
 
 
 class SuperResolutionNet(nn.Module):

@@ -99,9 +99,10 @@ def depthwise_sums(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     CPU's plain path takes it rather than ``F.conv2d(groups=C)``, whose
     bfloat16 form spreads an Inf into pixels outside its taps' reach."""
     _b, _c, hh, ww = h.shape
-    xp = F.pad(h.float(), (1, 1, 1, 1))
-    wf = w.float()
-    acc = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    acc_dt = torch.promote_types(h.dtype, torch.float32)
+    xp = F.pad(h.to(acc_dt), (1, 1, 1, 1))
+    wf = w.to(acc_dt)
+    acc = torch.zeros(h.shape, dtype=acc_dt, device=h.device)
     for dy in range(3):
         for dx in range(3):
             acc = acc + xp[:, :, dy:dy + hh, dx:dx + ww] * wf[dy, dx][:, None, None]
@@ -117,6 +118,7 @@ def conv_chain_plain(x, params: Sequence[Entry]) -> torch.Tensor:
     x = _concat(x)
     _layer_specs(params)
     dt = x.dtype
+    acc = torch.promote_types(dt, torch.float32)  # float32, float64 for a float64 chain
     cpu = x.device.type == "cpu"
     h = x.permute(0, 3, 1, 2)
     for w, bias, act in params:
@@ -125,10 +127,10 @@ def conv_chain_plain(x, params: Sequence[Entry]) -> torch.Tensor:
         elif w.ndim == 3:  # (3, 3, C) → (C, 1, 3, 3), groups = C
             y = F.conv2d(h, w.to(dt).permute(2, 0, 1).unsqueeze(1), padding=1, groups=w.shape[2])
         else:
-            cdt = torch.float32 if cpu else dt
+            cdt = acc if cpu else dt
             wk = w.to(dt).to(cdt).permute(3, 2, 0, 1)
             y = F.conv2d(h.to(cdt), wk, padding=w.shape[0] // 2).to(dt)
-        y = y.float() + bias.float()[:, None, None]
+        y = y.to(acc) + bias.to(acc)[:, None, None]
         if act == "relu":
             y = torch.maximum(y, y.new_zeros(()))
         h = y.to(dt)

@@ -395,3 +395,17 @@ def rdb_chain_int8_apply(x: torch.Tensor, qchain, out_dtype=None, int32_taps=Non
         if int32_taps:
             dispatch.launches["rdb_int8_int32_taps"] += 1
     return out
+
+
+def rdb_chain_quantized_apply(x: torch.Tensor, params_list: Sequence,
+                              scales: torch.Tensor) -> torch.Tensor:
+    """End to end: the chain's weights quantised per column from
+    ``calibrate_rdb_chain``'s ``scales`` (``quantize_rdb_chain``), then the
+    int8 stack in dy-major tap order, in x's dtype. On a CUDA tensor the
+    int8 kernels run (``nt_quantize_i8``, ``nt_conv2d_i8`` and
+    ``nt_rdb_lff_i8``, packing the weights at this call), and a chain whose
+    layers the kernels cannot take raises; the JAX function sends such a
+    chain to its plain formulation instead (``use_pallas = False``), which
+    the port does only for a CPU tensor."""
+    qchain = quantize_rdb_chain(params_list, scales, per_channel=False)
+    return rdb_chain_int8_apply(x, qchain, int32_taps=False, dx_major=False)

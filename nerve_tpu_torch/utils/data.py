@@ -7,12 +7,13 @@ from an explicit ``torch.Generator`` (the JAX package's PRNG bits are not
 reproduced); the datasets are numpy arrays on the host, NHWC, in [0, 1].
 ``batches`` is numpy and shuffles as the JAX package's does for the same
 ``np.random.Generator``. ``make_task_sequence`` is the continual-learning
-task sequence, one dataset per content type.
+task sequence, one dataset per content type. ``add_corruption`` draws the
+frame-recovery training's rectangle masks.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -128,6 +129,30 @@ def make_video_sr_dataset(generator: torch.Generator, num_samples: int, lr_size:
     frames_hr = torch.stack(frames, dim=1)  # (N, T, hr, hr, C)
     return {"lr_win": box_decimate(frames_hr, scale).numpy(),
             "hr": frames_hr[:, t_half].contiguous().numpy()}
+
+
+def add_corruption(generator: torch.Generator, frames: torch.Tensor,
+                   max_block: float = 0.4) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(corrupted, masks) for (B, H, W, C) ``frames``: one rectangle a
+    frame, its height in [H/8, max(⌊max_block · H⌋, H/8 + 1)) and its width
+    likewise, its top-left corner anywhere in the frame, the rectangle
+    clipped by the frame; masks (B, H, W, 1) float32, 1 = corrupted, and
+    ``corrupted = frames · (1 - mask)``. The draws come from ``generator``
+    (on the CPU); the masks are built on the frames' device."""
+    b, h, w, _c = frames.shape
+
+    def draw(lo, hi):
+        return torch.randint(lo, hi, (b,), generator=generator).to(frames.device)
+
+    bh = draw(h // 8, max(int(h * max_block), h // 8 + 1))
+    bw = draw(w // 8, max(int(w * max_block), w // 8 + 1))
+    y0, x0 = draw(0, h), draw(0, w)
+    ys = torch.arange(h, device=frames.device)[None, :, None]
+    xs = torch.arange(w, device=frames.device)[None, None, :]
+    mask = ((ys >= y0[:, None, None]) & (ys < (y0 + bh)[:, None, None])
+            & (xs >= x0[:, None, None]) & (xs < (x0 + bw)[:, None, None]))
+    mask = mask.to(torch.float32)[..., None]
+    return frames * (1.0 - mask), mask
 
 
 def batches(data: Dict[str, np.ndarray], batch_size: int, *,

@@ -51,6 +51,11 @@ lightweight model's train step (live BatchNorm) and frozen-statistics step,
 float32 at batch 8, LR 16² and 64², output, gradients and statistics against
 the plain route at the conv chain's float32 level (each gradient within 10×
 that, all together within it in relative L2), and the launches of a step.
+The int8 configuration in training mode: its chain sites in float, its RDB
+stack in int8 without a gradient. BatchNorm gradients of the flagship's
+and the lightweight model's train steps against float64: the kernel
+route's error within 2x of the plain route's. The recovery net's train
+step on the card against the CPU.
 """
 
 import importlib
@@ -1143,3 +1148,53 @@ def test_lightweight_step_grads(cuda, kind, lr_size):
         # A BatchNorm gradient is a sum over B·H·W terms that cancel.
         rel = 10 * limit if name.startswith("grad ") else limit
         assert st["max_abs"] <= rel * st["scale"], (name, st)
+
+
+@pytest.mark.cuda
+def test_int8_sites_in_train_mode(cuda):
+    """The flagship's int8 configuration in ``.train()`` (as the JAX package
+    runs it): the five chain sites run their float layers (10
+    ``conv_chain``, no ``conv_chain_int8``), the RDB stack stays int8 (8
+    ``rdb_int8`` and its input's ``quantize_i8``), the output carries a
+    gradient, and the stack's parameters get none."""
+    model = diag_conv.seeded_model(cuda, 0, quantized=True, quantized_chains=True)
+    g = torch.Generator().manual_seed(19)
+    video = torch.rand((1, 3, 32, 48, 3), generator=g).to(cuda)
+    quantize_sr(model, video, device=cuda)
+    dispatch.reset_launches()
+    out = model.train()(video)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in dispatch.launches.items() if v}
+    assert launched.get("conv_chain") == 10 and "conv_chain_int8" not in launched
+    assert launched.get("rdb_int8") == 8 and launched.get("quantize_i8") == 1
+    out.square().mean().backward()
+    assert all(p.grad is None for k, p in model.named_parameters() if k.startswith("rdbs."))
+    assert model.gff.kernel.grad is not None
+
+
+@pytest.mark.cuda
+def test_bn_grads_against_float64(cuda):
+    """The BatchNorm scale and bias gradients of the
+    flagship's bfloat16 train step (64/8, batch 16, 64²) and of the
+    lightweight model's float32 train step (batch 8, LR 64²), each against
+    the same step in float64 through the plain versions: the kernel route's
+    worst error (relative L2 and max|Δ| of max|float64|) within 2× of the
+    plain route's in the step's dtype (``diag.recovery``)."""
+    from nerve_tpu_torch.diag import recovery as diag_recovery
+
+    for name, r in diag_recovery.bn_grads_vs_float64(cuda).items():
+        assert r["within_2x"], (name, r)
+
+
+@pytest.mark.cuda
+def test_recovery_step_card_vs_cpu(cuda):
+    """One recovery train step (base 8, batch 2, 32², float32) on the card
+    against the CPU from the same weights: the loss within 1e-5 relative,
+    the running statistics within 1e-5 of max|CPU|, each gradient within
+    1e-4 in relative L2 or no farther from the float64 step than the CPU's."""
+    from nerve_tpu_torch.diag import recovery as diag_recovery
+
+    r = diag_recovery.step_against_cpu(cuda, base=8, batch=2, size=32)
+    assert r["loss_rel"] <= 1e-5 and r["stats_rel"] <= 1e-5, r
+    for k, v in r["grads"].items():
+        assert v["rel_l2"] <= 1e-4 or v["card_vs_f64"] <= v["cpu_vs_f64"], (k, v)

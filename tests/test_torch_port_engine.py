@@ -373,9 +373,15 @@ def test_engine_bridge_is_strict_and_inference_only(data):
     del bad["params"]["frame_recovery"]["decoder"]
     with pytest.raises(KeyError, match="missing"):
         engine_from_flax(bad, TCFG, device="cpu")
+    # Training mode (``test_torch_port_recovery_train.py`` holds it against
+    # JAX): the call runs under autograd and moves the running statistics;
+    # eval mode serves under inference mode.
     eng = port_engine(v, "full").train()
-    with pytest.raises(RuntimeError, match="inference only"):
-        eng(torch.from_numpy(data["frames"]))
+    stats0 = {k: b.clone() for k, b in eng.state_dict().items() if k.endswith((".mean", ".var"))}
+    out = eng(torch.from_numpy(data["frames"]), None, torch.from_numpy(data["mask"]))
+    assert out["enhanced"].requires_grad
+    assert any(not torch.equal(b, eng.state_dict()[k]) for k, b in stats0.items())
+    assert eng.eval()(torch.from_numpy(data["frames"]))["enhanced"].is_inference()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SuperResolutionNet(num_features=16, num_residual_blocks=1)
 

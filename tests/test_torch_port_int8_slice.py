@@ -207,12 +207,21 @@ def test_bridge_is_strict_about_quant(setup, fault):
 
 
 def test_int8_is_inference_only(setup):
-    model = setup["tmodel"]
-    try:
-        with pytest.raises(RuntimeError, match="inference only"):
-            model.train()(torch.from_numpy(setup["calib"]))
-    finally:
-        model.eval()
+    """Only serving is int8 throughout: in training mode the int8 model
+    trains its chain sites in float and keeps its RDB stack int8 without a
+    gradient (``test_train_mode_of_the_int8_sites``), and back in eval mode
+    it serves its int8 state unchanged."""
+    model = copy.deepcopy(setup["tmodel"])
+    x = torch.from_numpy(setup["calib"])
+    served = model(x)
+    out = model.train()(x)
+    assert out.requires_grad and torch.isfinite(out).all()
+    out.square().mean().backward()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    assert all(g is None for k, g in grads.items() if k.startswith("rdbs."))
+    assert grads["gff.kernel"].abs().max() > 0 and grads["upsampler.conv.kernel"].abs().max() > 0
+    model.load_state_dict(setup["tmodel"].state_dict())  # the statistics moved in training
+    assert torch.equal(model.eval()(x), served)
 
 
 def test_entry_points_default_to_the_card(setup):
@@ -226,25 +235,66 @@ def test_entry_points_default_to_the_card(setup):
         quantize_sr(setup["tmodel"], torch.from_numpy(setup["calib"]))
 
 
+def _jax_grads(fn, variables, x, g):
+    """jax.grad of ⟨fn(variables, x), g⟩ in the params and in x."""
+    def inner(params, x):
+        return jnp.sum(fn({**variables, "params": params}, x) * g)
+
+    gp, gx = jax.jit(jax.grad(inner, argnums=(0, 1)))(variables["params"], jnp.asarray(x))
+    return _np_tree(gp), np.asarray(gx)
+
+
+def _port_grads(mod, x, g):
+    """(output, {param name: gradient}, input gradient), None as zeros."""
+    tx = torch.from_numpy(x).requires_grad_()
+    out = mod(tx)
+    if out.requires_grad:
+        (out * torch.from_numpy(g)).sum().backward()
+    zeros = torch.zeros_like
+    return (out.detach(), {k: (p.grad if p.grad is not None else zeros(p)).numpy()
+                           for k, p in mod.named_parameters()},
+            (tx.grad if tx.grad is not None else zeros(tx)).numpy())
+
+
+def _close_rel(got, ref, rel, what):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, what
+    assert np.abs(got - ref).max() <= rel * np.abs(ref).max(), what
+
+
 def test_train_mode_of_the_int8_sites(setup):
     """Training mode at the int8 sites (ROADMAP Queue 3, item 3). The JAX
     package splits under ``train=True``: its int8 chains run in float (each
     chain site passes "off" when training), while its int8 RDB stack stays
     int8, since ``RDBStack.__call__`` takes no ``train`` and
-    ``SuperResolutionNet`` passes it none. The port raises at both: int8
-    serving is inference only, and training is a later slice of the port."""
+    ``SuperResolutionNet`` passes it none. The port does the same, and its
+    gradients are ``jax.grad``'s: through the int8 stack none (its weights
+    are the "quant" collection, not parameters, and ``jnp.round`` passes no
+    gradient to its input), through a chain site its float layer's. Forward
+    within 1e-6 of max|ref|, gradients within 1e-5 of max|ref| (all zero
+    where JAX's are)."""
     s = setup
     x = np.random.default_rng(5).random((1, 8, 12, 16)).astype(np.float32)
+    g = np.random.default_rng(6).standard_normal((1, 8, 12, 16)).astype(np.float32)
     # JAX: the RDB stack has no train to turn int8 off; it gives the int8 result.
     assert "train" not in inspect.signature(JaxRDBStack.__call__).parameters
     stack = {"params": s["qvars"]["params"]["rdbs"], "quant": s["qvars"]["quant"]["rdbs"]}
-    got = jax.jit(JaxRDBStack(16, 2, quantized=True).apply)(stack, x)
+    jstack = JaxRDBStack(16, 2, quantized=True)
+    got = jax.jit(jstack.apply)(stack, x)
     int8 = jrdb_int8.rdb_chain_int8_apply(jnp.asarray(x), stack["quant"]["qchain"],
                                           out_dtype=jnp.float32)
     exact = jax.jit(JaxRDBStack(16, 2).apply)({"params": stack["params"]}, x)
     # Jitted and eager float32 epilogues differ by an ulp; int8 moves by ~1e-2.
     np.testing.assert_allclose(np.asarray(got), np.asarray(int8), rtol=0, atol=1e-6)
     assert np.abs(np.asarray(got) - np.asarray(exact)).max() > 1e-3
+    jgp, jgx = _jax_grads(jstack.apply, stack, x, g)
+    assert not np.abs(jgx).any() and not any(np.abs(v).any() for v in jgp.values())
+    # The port's stack in training mode: int8, and no gradient.
+    model = copy.deepcopy(s["tmodel"]).train()
+    out, grads, gx = _port_grads(model.rdbs, x, g)
+    np.testing.assert_allclose(out.numpy(), np.asarray(got), rtol=0, atol=1e-6)
+    assert not out.requires_grad and not gx.any()
+    assert set(grads) == set(jgp) and not any(v.any() for v in grads.values())
     # JAX: a chain site in training runs its float layer, in eval its int8 state.
     gff = {"params": s["qvars"]["params"]["gff"], "quant": s["qvars"]["quant"]["gff"]}
     conv = JaxQuantizableConv(16, 16, act="relu", chain_quant="serve")
@@ -252,9 +302,13 @@ def test_train_mode_of_the_int8_sites(setup):
     np.testing.assert_allclose(trained, np.asarray(JaxQuantizableConv(16, 16, act="relu").apply(
         {"params": gff["params"]}, x)), rtol=0, atol=1e-6)
     assert np.abs(trained - np.asarray(conv.apply(gff, x))).max() > 1e-3
-    # The port: both int8 sites raise in training mode.
-    model = copy.deepcopy(s["tmodel"]).train()
-    with pytest.raises(RuntimeError, match="int8 RDB stack is inference only"):
-        model.rdbs(torch.from_numpy(x))
-    with pytest.raises(RuntimeError, match="int8 chains are inference only"):
-        model.gff(torch.from_numpy(x))
+    jgp, jgx = _jax_grads(lambda v, x: conv.apply(v, x, train=True), gff, x, g)
+    # The port's site in training mode: the float layer, its gradients JAX's.
+    out, grads, gx = _port_grads(model.gff, x, g)
+    _close_rel(out.numpy(), trained, 1e-6, "gff forward")
+    _close_rel(gx, jgx, 1e-5, "gff d/dx")
+    for k, v in _flatten(jgp).items():
+        _close_rel(grads[k], v, 1e-5, f"gff d/d{k}")
+    model.eval()
+    eval_out = model.gff(torch.from_numpy(x))
+    assert np.abs(eval_out.numpy() - trained).max() > 1e-3  # int8 again in eval

@@ -183,5 +183,6 @@ def test_frame_recovery_without_mask_is_the_frame_and_inference_only():
                                             generator=torch.Generator().manual_seed(0)).eval()
     got = model(torch.from_numpy(frame), torch.from_numpy(refs))
     np.testing.assert_array_equal(got.numpy(), frame)
-    with pytest.raises(RuntimeError, match="inference only"):
-        model.train()(torch.from_numpy(frame), torch.from_numpy(refs))
+    # In training mode (live BatchNorm) too: a zero mask keeps every pixel.
+    trained = model.train()(torch.from_numpy(frame), torch.from_numpy(refs))
+    np.testing.assert_array_equal(trained.detach().numpy(), frame)
