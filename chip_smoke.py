@@ -32,7 +32,9 @@ Phases, each of which raises on failure and prints its wall time:
    would round some of them otherwise, and past ±127; its serving shape is the
    attention site's three 64-channel frames. The RDB fusions also run alone
    (``rdb_lff``, ``rdb_lff_i8``: 224 → 64 channels at 1080p; at the small
-   shape from a wider buffer into an offset slot), the int8 one bit-exact
+   shape from a wider buffer into an offset slot; in float32 the dense
+   layers and fusion run the implicit-GEMM family of ``csrc/conv_f32.cuh``,
+   ``conv_f32`` / ``rdb_lff_f32``), the int8 one bit-exact
    on values at .5 steps of the next block's scale; their library times
    are ``torch.matmul`` and ``torch._int_mm`` of the same products. The
    correlation also runs the exact-sum input at the serving shape
@@ -171,8 +173,9 @@ Phases, each of which raises on failure and prints its wall time:
    ``ContinualDistillation.compute_loss``: each loss, Fisher, importance and
    meta-gradient within ``CONTINUAL_L2`` in relative L2 norm, the
    parameters after each step at ``TRAIN_PARAM_REL``/``TRAIN_PARAM_L2``; the
-   second-order step launches ``conv_chain``, ``rdb``, ``rdb_lff`` and
-   ``correlation`` (the plain route nothing), and its meta-gradient differs
+   second-order step launches ``conv_chain``, ``rdb``, ``rdb_lff``,
+   ``correlation`` and the float32 family's ``conv_f32`` and
+   ``rdb_lff_f32`` (the plain route nothing), and its meta-gradient differs
    from the first-order one by more than ``CONTINUAL_L2`` (the size of a
    dropped second-order term); ms per meta step and per Fisher pass, peak
    memory. (c) ``python -m nerve_tpu_torch.train_continual`` once per
@@ -188,8 +191,9 @@ Phases, each of which raises on failure and prints its wall time:
    (``diag.federated.plain_route()``): outputs, losses and statistics within
    ``FED_LIMIT`` of max|plain|, the gradients together within
    ``FED_GRADS_L2`` in relative L2 and each within ``FED_GRAD_TENSOR``; the launches of one
-   step exactly ``FED_STEP_LAUNCHES`` (train 2 ``conv_chain``; frozen 6
-   ``conv_chain`` and 4 ``conv_chain_dw3``; each backward none); 5 AdamW
+   step exactly ``FED_STEP_LAUNCHES`` (train 2 ``conv_chain``, each a
+   ``conv_f32``; frozen 6 ``conv_chain`` / ``conv_f32`` and 4
+   ``conv_chain_dw3``; each backward none); 5 AdamW
    steps of a ``VideoEnhancementClient`` on both routes, the parameters at
    phase 9's rule. (b) One FedAvg round of the CLI's data (8 clients × 5
    local steps, 32 samples at LR 16²) on both routes: the parameters at
@@ -204,7 +208,12 @@ Phases, each of which raises on failure and prints its wall time:
    server's round line with a finite ``train_loss``); any child failing
    fails the phase, and every child is killed at the end. (d) ms per round
    at the CLI's defaults and its launches, ms per client ``fit`` (1 epoch,
-   batch 8, 32 samples) at LR 16² and 64², the 64² fit's peak memory.
+   batch 8, 32 samples) at LR 16² and 64², the 64² fit's peak memory. (e)
+   The float32 route of the conv chain (``diag.federated.float32_layers``:
+   the lightweight head 3 -> 32 and tail 32 -> 12, 64 -> 64 and ``dw3``, at
+   8 × 64² and 1080p) beside its plain version, cuDNN and its bound: each
+   one launch of its kernel and within ``FLOAT32_ROW_REL`` of max|plain|,
+   or the run fails.
 12. Recovery and checkpoints (``diag.recovery``; float32, TF32 off). (a) One
    recovery train step (``training.recovery``: base 64, window 2, T = 5,
    batch 8, 64², seeded weights, the protocol's masks) on the card against
@@ -240,7 +249,15 @@ Phases, each of which raises on failure and prints its wall time:
    the plain route in float64: the kernel route's worst error within 2× of
    the plain route's. The CLIs (c)-(e) run as subprocesses beside (a), (b),
    (g), (f), (h). Phase 10 also prints the float32 route's times at the
-   meta step's shapes (``diag.continual.float32_rows``).
+   meta step's shapes (``diag.continual.float32_rows``: the head, 64 -> 64,
+   an RDB block, the fusion alone at 4 × 64² and 1080p, the correlation),
+   each held to ``FLOAT32_ROW_REL`` of max|plain|. The kernels phase also
+   runs the planar chain on finite inputs whose second layer overflows
+   bfloat16 (``diag.planar.overflow_case``, widths 32 and 20): the kernel's
+   NaN / +Inf / -Inf where the plain version's are; and prints the float32
+   family's launch records. The ``{"kernels"}`` line's ``conv_f32`` and
+   ``rdb_lff_f32`` entries take their launches from phase 10's meta step and
+   their times from the 64 -> 64 row at 1080p and the fusion's 1080p row.
 
 ``--profile DIR`` profiles two steps of each slice, and two bf16 engine
 calls in "full" and in "recovery_only" mode (``diag.conv.profile``:
@@ -285,6 +302,7 @@ from nerve_tpu_torch.diag import continual as diag_continual
 from nerve_tpu_torch.diag import correlation as diag_corr
 from nerve_tpu_torch.diag import d2s as diag_d2s
 from nerve_tpu_torch.diag import probe
+from nerve_tpu_torch.diag import planar as diag_planar
 from nerve_tpu_torch.diag.planar import launch_path
 from nerve_tpu_torch.diag import rdb as diag_rdb
 from nerve_tpu_torch.diag import federated as diag_fed
@@ -393,6 +411,12 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, plain version)
                         "nerve_tpu/ops/conv_chain_int8.py:135", conv_chain_int8_plain_op),
     "rdb_int8": ("nerve_tpu_torch/csrc/rdb_int8.cu", "nerve_tpu/ops/rdb_int8.py:245",
                  rdb_chain_int8_plain_op),
+    # The float32 route's dense layer and fusion: one implicit-GEMM family
+    # (phases 10 and 11 time them; the meta step carries them).
+    "conv_f32": ("nerve_tpu_torch/csrc/conv_f32.cuh", "nerve_tpu/ops/conv_chain.py:169",
+                 conv_chain.conv_chain_plain),
+    "rdb_lff_f32": ("nerve_tpu_torch/csrc/conv_f32.cuh", "nerve_tpu/ops/rdb.py:121",
+                    rdb.lff_plain),
     # The RDB fusions alone (each also runs inside its RDB above).
     "rdb_lff": ("nerve_tpu_torch/csrc/rdb.cu", "nerve_tpu/ops/rdb.py:121", rdb.lff_plain),
     "rdb_lff_i8": ("nerve_tpu_torch/csrc/rdb_int8.cu", "nerve_tpu/ops/rdb_int8.py:245",
@@ -526,9 +550,10 @@ def library_d2s(x):
 def bf16_kernel_cases(dev, dt, serving: bool):
     """name -> (label, kernel call, plain call, work) at small or serving shapes."""
     g = torch.Generator().manual_seed(7)
+    gd = torch.Generator(device=dev).manual_seed(7)  # the activations, drawn on the card
 
     def act(*shape):
-        return _randn(g, shape).to(dev, dt)
+        return torch.randn(shape, generator=gd, device=dev).to(dt)
 
     if serving:
         x = torch.rand((1, H, W, 12), generator=g).to(dev, dt)
@@ -623,7 +648,8 @@ def int8_kernel_cases(dev, dt, serving: bool):
     g = torch.Generator().manual_seed(8)
     if serving:
         sites = serving_inputs(g, dev, dt)
-        xr = _randn(g, (1, H, W, FEATURES), 0.5).to(dev, dt)
+        xr = (torch.randn((1, H, W, FEATURES), generator=torch.Generator(device=dev).manual_seed(8),
+                          device=dev) * 0.5).to(dt)
         plist = [_common.rdb_params(g, FEATURES, dev, torch.float32) for _ in range(BLOCKS)]
         label = f"serving 1080p ({BLOCKS} RDBs, 5 chain sites)"
     else:
@@ -817,6 +843,14 @@ def print_launch_records(dev) -> None:
         x = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
         print(f"launch d2s_packed_planar {shape} bf16 s={s}: "
               f"{json.dumps(d2s.planar_launch_record(x, s))}", flush=True)
+    for cin, cout, k, lff in ((3, 32, 3, False), (FEATURES, FEATURES, 3, False),
+                              (32, 12, 3, False), (FEATURES + 128, 32, 3, False),
+                              (FEATURES + 160, FEATURES, 1, True)):
+        x = torch.zeros((1, H, W, -(-cin // 8) * 8 if cin > 3 else 3), device=dev)
+        print(f"launch {'rdb_lff_f32' if lff else 'conv_f32'} (1, {H}, {W}) cin {cin} -> {cout} "
+              f"{k}x{k} float32: {json.dumps(conv_chain.f32_launch_record(x, cin, cout, k, lff))}",
+              flush=True)
+    del x
     x = torch.zeros((1, H, W, FEATURES), dtype=torch.bfloat16, device=dev)
     for mode in rdb_taps.CONTRACTS:
         for cin, cout in ((FEATURES + 128, 32), (384, 64)):
@@ -872,6 +906,26 @@ def check_planar_non_finite(dev) -> None:
         if not ok:
             raise AssertionError("the planar chain's non-finite values or finite values differ "
                                  "from its plain version's")
+    # A finite input whose second layer's sums overflow bf16 inside the chain.
+    for c in (32, 20):
+        x, params = diag_planar.overflow_case(c, dev)
+        got = ops.planar_chain_apply(x, params)
+        ref = planar_chain.planar_chain_plain(
+            x.cpu(), [(w.cpu(), b.cpu(), a) for w, b, a in params]).to(dev)
+        bad = ~torch.isfinite(ref)
+        same = all(torch.equal(f(got), f(ref))
+                   for f in (torch.isnan, torch.isposinf, torch.isneginf))
+        scale = ref.float().masked_fill(bad, 0).abs().max().item()
+        err = (got.float() - ref.float()).masked_fill(bad, 0).abs().max().item()
+        lim = BF16_LIMITS["planar_chain"][1] * scale
+        ok = same and 0 < int(bad.sum()) and err <= lim and bool(torch.isfinite(x).all())
+        print(f"kernel {'planar_chain overflow':24s} {f'width {c}, finite input 2x37x101':38s} "
+              f"{'torch.bfloat16':15s} +Inf {int(torch.isposinf(ref).sum())}, NaN in the "
+              f"kernel's {int(torch.isnan(got).sum())} (masks {'equal' if same else 'DIFFER'}), "
+              f"finite max|err| {err:.3e} (limit {lim:.3e}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("the planar chain's values after an overflow inside the chain "
+                                 "differ from its plain version's")
 
 
 def check_correlation_exact(dev, ms: float) -> None:
@@ -1071,7 +1125,7 @@ def run_slice(model, video, card: str):
     outs, times, launches, peak = drive(model, video, ("d2s_packed", "correlation",
                                                        "conv_chain", "rdb", "rdb_lff"),
                                         ("conv_chain_int8", "rdb_int8", "quantize_i8",
-                                         "rdb_lff_i8"))
+                                         "rdb_lff_i8", "conv_f32", "rdb_lff_f32"))
     steps = len(video) - 1
     if launches["rdb_lff"] != launches["rdb"] or launches["rdb"] != 8 * steps:
         raise AssertionError(f"bf16 slice launches {launches}: expected 8 rdb and 8 rdb_lff "
@@ -1688,7 +1742,7 @@ CONTINUAL_DIMS = {"small": None, "experiment": (16, 32, 32, 16, 2, 32)}
 # dropped second-order term moves these by 1e-2 or more (the second-order
 # term alone is printed: 0.17 at 64/8, inner rate 0.01).
 CONTINUAL_L2 = 1e-3
-CONTINUAL_LAUNCHES = ("conv_chain", "rdb", "rdb_lff", "correlation")
+CONTINUAL_LAUNCHES = ("conv_chain", "rdb", "rdb_lff", "correlation", "conv_f32", "rdb_lff_f32")
 FLOAT32_ROW_REL = 1e-4  # the float32 rows' kernels vs plain, of max|plain| (TF32 off)
 CONTINUAL_STRATEGIES = ("ewc", "replay", "si", "maml", "reptile")
 
@@ -1815,17 +1869,19 @@ def check_continual_cli(card: str) -> None:
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
 
-def run_continual_phase(dev, card: str) -> dict:
-    """Phase 10; returns the launches of one second-order meta step."""
+def run_continual_phase(dev, card: str):
+    """Phase 10; returns the launches of one second-order meta step and the
+    float32 rows (``diag.continual.float32_rows``)."""
     check_continual_hvps(dev)
     launches = check_continual_library(dev, card)
     check_continual_cli(card)
     print(f"float32 route at the meta step's shapes on {card}:", flush=True)
-    for name, r in diag_continual.float32_rows(dev).items():
+    rows = diag_continual.float32_rows(dev)
+    for name, r in rows.items():
         if not r["launches"] or r["rel_err"] > FLOAT32_ROW_REL:
             raise AssertionError(f"float32 {name}: launches {r['launches']}, error "
                                  f"{r['rel_err']:.3e} of max|plain|")
-    return launches
+    return launches, rows
 
 
 # --------------------------------------------------------------------------- #
@@ -1842,8 +1898,9 @@ def run_continual_phase(dev, card: str) -> dict:
 FED_LIMIT = 1e-4
 FED_GRADS_L2 = 1e-4
 FED_GRAD_TENSOR = 1e-3
-FED_STEP_LAUNCHES = {"train": {"forward": {"conv_chain": 2}, "backward": {}},
-                     "frozen_stats": {"forward": {"conv_chain": 6, "conv_chain_dw3": 4},
+FED_STEP_LAUNCHES = {"train": {"forward": {"conv_chain": 2, "conv_f32": 2}, "backward": {}},
+                     "frozen_stats": {"forward": {"conv_chain": 6, "conv_f32": 6,
+                                                  "conv_chain_dw3": 4},
                                       "backward": {}}}
 FED_CLIENT_STEPS = 5
 FED_LOSS_REL = 1e-4  # each client step's loss, kernel vs plain route
@@ -1980,11 +2037,19 @@ def check_fed_cli(card: str) -> None:
           f"{card}", flush=True)
 
 
-def run_federated_phase(dev, card: str) -> dict:
-    """Phase 11; returns the launches of one round."""
+def run_federated_phase(dev, card: str):
+    """Phase 11; returns the launches of one round and the float32 layers
+    (``diag.federated.float32_layers``)."""
     check_fed_steps(dev)
     launches = check_fed_round(dev)
     check_fed_cli(card)
+    print(f"float32 route of the conv chain's kernels on {card}:", flush=True)
+    layers = diag_fed.float32_layers(dev)
+    for name, r in layers.items():
+        want = "conv_chain_dw3" if name.startswith("dw3") else "conv_f32"
+        if r["launches"].get(want) != 1 or r["rel_err"] > FLOAT32_ROW_REL:
+            raise AssertionError(f"float32 {name}: launches {r['launches']}, error "
+                                 f"{r['rel_err']:.3e} of max|plain|")
     t = diag_fed.timing(dev)
     print(f"federated lightweight float32: FedAvg round at the CLI's defaults "
           f"({diag_fed.CLIENTS} clients x {diag_fed.LOCAL_STEPS} local steps, "
@@ -1993,7 +2058,7 @@ def run_federated_phase(dev, card: str) -> dict:
           f"{diag_fed.SAMPLES} samples) LR 16^2 {t['fit_ms_16']:.2f} ms, LR 64^2 "
           f"{t['fit_ms_64']:.2f} ms, peak {t['fit_peak_bytes_64'] / 2**20:.1f} MiB allocated "
           f"(medians of 3 after 1); on {card}", flush=True)
-    return launches
+    return launches, layers
 
 
 # --------------------------------------------------------------------------- #
@@ -2413,9 +2478,16 @@ def main() -> int:
     with phase("train"):
         run_train_phase(dev, card, args.profile)
     with phase("continual"):
-        run_continual_phase(dev, card)
+        launches_meta, f32_rows = run_continual_phase(dev, card)
     with phase("federated"):
-        run_federated_phase(dev, card)
+        _round, f32_layers = run_federated_phase(dev, card)
+    # The float32 family's numbers: the 64 -> 64 layer and the fusion at 1080p.
+    for name, r in (("conv_f32", f32_layers["flagship 64->64 1080p"]),
+                    ("rdb_lff_f32", f32_rows["fusion 224->64 (1x1080x1920)"])):
+        summary[name] = {"max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                         "bound_by": r["bound_by"],
+                         "library_ms": r.get("cudnn_ms", r.get("library_ms"))}
     with phase("recovery and checkpoints"):
         run_recovery_phase(dev, card)
     if args.profile:
@@ -2430,7 +2502,8 @@ def main() -> int:
             "rdb_lff_i8": launches8,
             "conv_chain_dw3": launches_lw, "planar_chain": launches_planar,
             "rdb_int8_int32_taps": launches8pc, "rdb_taps": launches_rdb,
-            "d2s_packed_planar": launches_d2s, "probe": launches_probe}
+            "d2s_packed_planar": launches_d2s, "probe": launches_probe,
+            "conv_f32": launches_meta, "rdb_lff_f32": launches_meta}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": runs.get(name, launches)[name], **summary[name]}
                for name, (src, rep, _plain) in KERNELS.items()]

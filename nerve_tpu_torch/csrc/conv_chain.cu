@@ -54,9 +54,9 @@
 //     rounds and stores into the output slot, masking the edges (the
 //     fusion's epilogue: float32 bias, times res_scale, plus the residual
 //     channel read from device memory, rounded once).
-// float32 (kept exact, no TF32) runs as FP32 FMAs on the CUDA cores: each
-// thread keeps a 4-pixel column x 8-channel block of sums in registers,
-// reusing a column segment of the input for the three vertical taps.
+// float32 (kept exact, no TF32) runs the implicit-GEMM family of FP32 FMAs
+// on the CUDA cores in conv_f32.cuh (instances in conv_f32.cu), whose note
+// says what bounds it and how it is built.
 //
 // What the design still gives up: a chain's intermediates round-trip device
 // memory between layers (the TPU kernel keeps them on chip); a tile is 4
@@ -432,130 +432,6 @@ cudaError_t launch_wgmma(const void* const* xs, int nx, int xcs, int cin, const 
   return launch_wgmma_cfg<K, 128>(xs, nx, xcs, cin, w, bias, out, ocs, ocoff, cout, b, h, wd, relu, st);
 }
 
-// ----------------------------------------------------------------- float32
-
-constexpr int TH = 8, TW = 32, P = 4, FMA_CK = 8;
-constexpr int PIX_THREADS = TW * (TH / P);
-
-template <int K, int CO, int O>
-__global__ void __launch_bounds__(PIX_THREADS*(CO / O))
-    conv_fma_kernel(const float* x, int xcs, int cin, const float* __restrict__ w,
-                    const float* __restrict__ bias, float* out, int ocs,
-                    int ocoff, int cout, int h, int wd, int relu) {
-  constexpr int R = K / 2, IH = TH + 2 * R, IW = TW + 2 * R;
-  constexpr int NTHREADS = PIX_THREADS * (CO / O);
-  static_assert(O % 4 == 0 && CO % O == 0, "O must be a multiple of 4");
-  __shared__ float sx[FMA_CK][IH][IW];
-  __shared__ __align__(16) float sw[FMA_CK][K * K][CO];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TW, tg = (tid / TW) % (TH / P), og = tid / PIX_THREADS;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const int nco = (cout + CO - 1) / CO;
-  const int b = blockIdx.z / nco, co0 = (blockIdx.z % nco) * CO;
-  const long long img = (long long)b * h * wd;
-
-  float acc[P][O];
-#pragma unroll
-  for (int j = 0; j < P; ++j)
-#pragma unroll
-    for (int q = 0; q < O; ++q) acc[j][q] = 0.f;
-
-  for (int c0 = 0; c0 < cin; c0 += FMA_CK) {
-    __syncthreads();
-    for (int i = tid; i < FMA_CK * IH * IW; i += NTHREADS) {
-      const int k = i % FMA_CK, r = i / FMA_CK, xx = r % IW, yy = r / IW;
-      const int gy = y0 + yy - R, gx = x0 + xx - R, gc = c0 + k;
-      float v = 0.f;
-      if (gy >= 0 && gy < h && gx >= 0 && gx < wd && gc < cin)
-        v = x[(img + (long long)gy * wd + gx) * xcs + gc];
-      sx[k][yy][xx] = v;
-    }
-    for (int i = tid; i < FMA_CK * K * K * CO; i += NTHREADS) {
-      const int o = i % CO, r = i / CO, tap = r % (K * K), k = r / (K * K);
-      const int gc = c0 + k, go = co0 + o;
-      float v = 0.f;
-      if (gc < cin && go < cout) v = w[((long long)tap * cin + gc) * cout + go];
-      sw[k][tap][o] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < FMA_CK; ++k) {
-#pragma unroll
-      for (int kx = 0; kx < K; ++kx) {
-        float seg[P + K - 1];
-#pragma unroll
-        for (int j = 0; j < P + K - 1; ++j) seg[j] = sx[k][tg * P + j][tx + kx];
-#pragma unroll
-        for (int ky = 0; ky < K; ++ky) {
-          float wv[O];
-#pragma unroll
-          for (int q = 0; q < O; q += 4) {
-            const float4 t =
-                *reinterpret_cast<const float4*>(&sw[k][ky * K + kx][og * O + q]);
-            wv[q] = t.x;
-            wv[q + 1] = t.y;
-            wv[q + 2] = t.z;
-            wv[q + 3] = t.w;
-          }
-#pragma unroll
-          for (int j = 0; j < P; ++j)
-#pragma unroll
-            for (int q = 0; q < O; ++q)
-              acc[j][q] = fmaf(seg[j + ky], wv[q], acc[j][q]);
-        }
-      }
-    }
-  }
-
-  const int gx = x0 + tx;
-  if (gx >= wd) return;
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    const int gy = y0 + tg * P + j;
-    if (gy >= h) continue;
-    float* o = out + (img + (long long)gy * wd + gx) * ocs + ocoff;
-#pragma unroll
-    for (int q = 0; q < O; ++q) {
-      const int go = co0 + og * O + q;
-      if (go < cout) {
-        float v = acc[j][q] + bias[go];
-        if (relu) v = fmaxf(v, 0.f);
-        o[go] = v;
-      }
-    }
-  }
-}
-
-template <int K, int CO, int O>
-cudaError_t launch_fma_cfg(const void* x, int xcs, int cin, const float* w,
-                           const float* bias, void* out, int ocs, int ocoff,
-                           int cout, int b, int h, int wd, int relu,
-                           cudaStream_t stream) {
-  const int nco = (cout + CO - 1) / CO;
-  const dim3 grid((wd + TW - 1) / TW, (h + TH - 1) / TH, b * nco);
-  conv_fma_kernel<K, CO, O><<<grid, PIX_THREADS * (CO / O), 0, stream>>>(
-      static_cast<const float*>(x), xcs, cin, w, bias, static_cast<float*>(out),
-      ocs, ocoff, cout, h, wd, relu);
-  return cudaGetLastError();
-}
-
-template <int K>
-cudaError_t launch_fma(const void* x, int xcs, int cin, const float* w,
-                       const float* bias, void* out, int ocs, int ocoff,
-                       int cout, int b, int h, int wd, int relu,
-                       cudaStream_t st) {
-  // The output-channel tile follows the layer's width so that the 2- and
-  // 3-channel heads do not run 64-wide blocks of zeros.
-  if (cout > 32)
-    return launch_fma_cfg<K, 64, 8>(x, xcs, cin, w, bias, out, ocs, ocoff, cout, b, h, wd, relu, st);
-  if (cout > 16)
-    return launch_fma_cfg<K, 32, 8>(x, xcs, cin, w, bias, out, ocs, ocoff, cout, b, h, wd, relu, st);
-  if (cout > 4)
-    return launch_fma_cfg<K, 16, 8>(x, xcs, cin, w, bias, out, ocs, ocoff, cout, b, h, wd, relu, st);
-  return launch_fma_cfg<K, 4, 4>(x, xcs, cin, w, bias, out, ocs, ocoff, cout, b, h, wd, relu, st);
-}
-
 }  // namespace
 
 cudaError_t nt_lff_bf16_wgmma(const void* cat, int xcs, int ccat, const void* w,
@@ -590,9 +466,10 @@ extern "C" int nt_conv2d(const void* x0, const void* x1, const void* x2, int nx,
     return (int)(ksize == 3 ? launch_wgmma<3> : launch_wgmma<1>)(
         xs, nx, x_cstride, cin, w, bias, out, out_cstride, out_coff, cout, b, h, w_, relu, st);
   }
-  if (dtype == NT_F32 && nx == 1)
-    return (int)(ksize == 3 ? launch_fma<3> : launch_fma<1>)(
-        x0, x_cstride, cin, static_cast<const float*>(w), bias, out, out_cstride, out_coff,
-        cout, b, h, w_, relu, st);
+  if (dtype == NT_F32) {
+    const void* xs[3] = {x0, x1, x2};
+    return (int)nt_conv2d_f32(xs, nx, x_cstride, cin, static_cast<const float*>(w), bias, out,
+                              out_cstride, out_coff, cout, b, h, w_, ksize, relu, st, nullptr);
+  }
   return (int)cudaErrorInvalidValue;
 }

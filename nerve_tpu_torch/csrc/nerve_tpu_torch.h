@@ -56,14 +56,27 @@ int nt_correlation_launch(const void* f1, const void* f2, int b, int h, int w,
 // writes channels [out_coff, out_coff + cout) of out (channel stride
 // out_cstride). The input is x0 (channel stride x_cstride) when nx = 1, or
 // the channel concatenation of x0, x1, x2 (nx = 2 or 3 parts of x_cstride
-// channels each, cin = nx * x_cstride), read in place. NT_F32: nx = 1, w is
-// float32 HWIO (ksize, ksize, cin, cout). NT_BF16: x_cstride a multiple of
-// 8 (of 16 when nx > 1), every part 16-byte aligned, and w the bf16 image
-// of ops/conv_chain.py `pack_conv_weights`.
+// channels each, cin = nx * x_cstride), read in place. NT_F32: w is float32
+// HWIO (ksize, ksize, cin, cout), contiguous; any x_cstride and alignment
+// (TMA where cin and x_cstride are multiples of 4 and every part is 16-byte
+// aligned, else cp.async: ops/conv_chain.py `f32_input_route`). NT_BF16:
+// x_cstride a multiple of 8 (of 16 when nx > 1), every part 16-byte
+// aligned, and w the bf16 image of ops/conv_chain.py `pack_conv_weights`.
 int nt_conv2d(const void* x0, const void* x1, const void* x2, int nx,
               int x_cstride, int cin, const void* w, const float* bias,
               void* out, int out_cstride, int out_coff, int cout, int b,
               int h, int w_, int ksize, int relu, int dtype, void* stream);
+
+// The launch the float32 dense layer (lff = 0) or the float32 RDB fusion
+// (lff = 1: ksize 1, nx 1, cin = ccat, cout = c) makes for these arguments,
+// without launching: rec[0..14] = grid, threads, dynamic shared bytes,
+// static shared bytes, registers a thread, local (spill) bytes a thread,
+// tiles, tile height, tile width, N tile, K chunk, ring stages, weights
+// resident (1) or streamed (0), route (0 TMA, 1 cp.async), warp sets
+// splitting each K chunk. stream unused.
+int nt_conv2d_f32_launch(const void* x0, const void* x1, const void* x2, int nx,
+                         int x_cstride, int cin, int cout, int b, int h, int w_,
+                         int ksize, int lff, int* rec, void* stream);
 
 // One SAME depthwise 3x3 layer: out[..., c] = sum over the 9 taps of
 // x[y+dy-1, x+dx-1, c] * w[dy, dx, c] (w rounded to the dtype here),
@@ -501,6 +514,16 @@ constexpr int NT_LFF_I8_N_TILE = 32;  // output channels of an int8 fusion tile
 cudaError_t nt_lff_bf16_wgmma(const void* cat, int xcs, int ccat, const void* w,
                               const float* bias, void* out, int ocs, int ocoff, int c, int b,
                               int h, int wd, float res_scale, cudaStream_t stream);
+// The float32 dense layer and RDB fusion (conv_f32.cuh's family; conv_f32.cu
+// and rdb.cu), launched by nt_conv2d and nt_rdb_lff after their checks;
+// with rec non-null they fill rec as nt_conv2d_f32_launch says, launching
+// nothing.
+cudaError_t nt_conv2d_f32(const void* const* xs, int nx, int xcs, int cin, const float* w,
+                          const float* bias, void* out, int ocs, int ocoff, int cout, int b, int h,
+                          int wd, int k, int relu, cudaStream_t stream, int* rec);
+cudaError_t nt_lff_f32(const void* cat, int xcs, int ccat, const float* w, const float* bias,
+                       void* out, int ocs, int ocoff, int c, int b, int h, int wd,
+                       float res_scale, cudaStream_t stream, int* rec);
 cudaError_t nt_lff_i8_wgmma(const void* cat, int xcs, int ccat, const void* w, const float* ldq,
                             const float* lbias, const float* s_in, const float* s_next,
                             void* out, int ocs, int ocoff, int c, int b, int h, int wd, int odt,

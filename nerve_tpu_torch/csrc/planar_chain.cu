@@ -84,8 +84,17 @@
 //     next layer would carry into the pixel's real channels where the
 //     reference, which has no such channel, may have made an -Inf a 0 by
 //     its relu (the per-tile kernel below stores padded channels as zeros).
-//     What still differs: an Inf or NaN that a finite input makes inside
-//     the chain (an overflow) is not checked for.
+//     An Inf or NaN that a finite input makes inside the chain (a layer's
+//     sums overflowing bf16) is caught the same way: each stage's epilogue
+//     keeps a per-thread flag of whether the rounded values it stored into
+//     the next buffer are all finite (the exponent test above, in
+//     registers), reduced at the barrier that opens the next stage, so
+//     that every later stage of that tile runs checked and the padded
+//     channels are zeroed; the finite path adds no pass over shared memory.
+//     What still differs: a sum whose summation order decides whether it
+//     overflows (the tensor cores add a pixel's products in another order
+//     than the reference's taps) can come out Inf where the reference's is
+//     finite, or the other way round.
 //   * Dense layers run mma.sync.m16n8k16 per tap and 16-channel chunk.
 //   * The last stage writes its tile into a planar [Cout][TH][TW] staging
 //     area, stored by one TMA store whose tensor map clips the ragged edge;
@@ -461,6 +470,15 @@ __device__ __forceinline__ unsigned finish2(float a0, float a1, const float (&bi
   return d;
 }
 
+// A bf16 pair's exponent bits plus 0x80 each: the sign bit of a half is set
+// where that half is Inf or NaN (all ones carry into it) and nowhere else,
+// so the OR of many of these, masked with NONFINITE2 once, tells whether any
+// of them was.
+constexpr unsigned NONFINITE2 = 0x80008000u;
+__device__ __forceinline__ unsigned exponent_carry2(unsigned v) {
+  return (v & 0x7f807f80u) + 0x00800080u;
+}
+
 // A pixel of an m-tile, as the stage's sink needs it.
 struct Px {
   int p;        // flat index in the region
@@ -477,15 +495,18 @@ struct Sink {
   bf16* ostg;
   int cout, plane;
 
-  // Channels n, n + 1 of a pixel, a bf16 pair (n first).
-  __device__ __forceinline__ void put(const Px& px, int n, unsigned v) const {
-    if (!px.keep) return;
+  // Channels n, n + 1 of a pixel, a bf16 pair (n first). Returns
+  // exponent_carry2 of a pair stored into the next buffer (of the value
+  // computed, also where 0 is stored outside the image), 0 for the output.
+  __device__ __forceinline__ unsigned put(const Px& px, int n, unsigned v) const {
+    if (!px.keep) return 0u;
     if (dst) {
       *reinterpret_cast<unsigned*>(dst + px.p * stride + n) = px.inside ? v : 0u;
-    } else {
-      if (n < cout) ostg[n * plane + px.o] = __ushort_as_bfloat16((unsigned short)(v & 0xffffu));
-      if (n + 1 < cout) ostg[(n + 1) * plane + px.o] = __ushort_as_bfloat16((unsigned short)(v >> 16));
+      return exponent_carry2(v);
     }
+    if (n < cout) ostg[n * plane + px.o] = __ushort_as_bfloat16((unsigned short)(v & 0xffffu));
+    if (n + 1 < cout) ostg[(n + 1) * plane + px.o] = __ushort_as_bfloat16((unsigned short)(v >> 16));
+    return 0u;
   }
 };
 
@@ -528,27 +549,34 @@ __device__ __forceinline__ void load_bias(const float* sb, float (&bias)[NT][2])
   }
 }
 
+// Returns the OR of the sink's exponent_carry2 of what it stored.
 template <int NT>
-__device__ __forceinline__ void store_acc(const float (&acc)[NT][4], const float (&bias)[NT][2],
-                                          int relu, const Px& pa, const Px& pb, const Sink& sink) {
+__device__ __forceinline__ unsigned store_acc(const float (&acc)[NT][4],
+                                              const float (&bias)[NT][2], int relu, const Px& pa,
+                                              const Px& pb, const Sink& sink) {
   const int t = threadIdx.x % 4;
+  unsigned bad = 0u;
 #pragma unroll
   for (int n8 = 0; n8 < NT; ++n8) {
     const int n = n8 * 8 + 2 * t;
-    sink.put(pa, n, finish2(acc[n8][0], acc[n8][1], bias[n8], relu));
-    sink.put(pb, n, finish2(acc[n8][2], acc[n8][3], bias[n8], relu));
+    bad |= sink.put(pa, n, finish2(acc[n8][0], acc[n8][1], bias[n8], relu));
+    bad |= sink.put(pb, n, finish2(acc[n8][2], acc[n8][3], bias[n8], relu));
   }
+  return bad;
 }
 
-// A dense 3x3 or 1x1 layer: A by ldmatrix from the pixel buffer.
+// A dense 3x3 or 1x1 layer: A by ldmatrix from the pixel buffer. Like
+// every stage, it returns the OR of exponent_carry2 of what this thread
+// stored into the next buffer.
 template <int NT>
-__device__ void stage_dense(const Geo& G, const Stage& S, const bf16* src,
-                            const unsigned char* wsm, const Sink& sink, const Walk& wk) {
+__device__ unsigned stage_dense(const Geo& G, const Stage& S, const bf16* src,
+                                const unsigned char* wsm, const Sink& sink, const Walk& wk) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int cin16 = ceil16(S.cin), ks = cin16 + 8, s_in = G.smax;
   const bf16* sw = reinterpret_cast<const bf16*>(wsm + S.w_off);
   float bias[NT][2];
   load_bias<NT>(reinterpret_cast<const float*>(wsm + S.b_off), bias);
+  unsigned bad = 0u;
   for (int mt = warp; mt < wk.nmt; mt += BW) {
     const int p0 = wk.p0(G, mt);
     float acc[NT][4] = {};
@@ -567,16 +595,17 @@ __device__ void stage_dense(const Geo& G, const Stage& S, const bf16* src,
         }
       }
     }
-    store_acc<NT>(acc, bias, S.relu, wk.pixel(G, p0 + lane / 4),
-                  wk.pixel(G, p0 + lane / 4 + 8), sink);
+    bad |= store_acc<NT>(acc, bias, S.relu, wk.pixel(G, p0 + lane / 4),
+                         wk.pixel(G, p0 + lane / 4 + 8), sink);
   }
+  return bad;
 }
 
 // The folded head: a 3x3 layer of cin <= 3 channels as one product over
 // K = 32, k = c * 9 + tap, A gathered from the planar input box.
 template <int NT>
-__device__ void stage_head(const Geo& G, const Stage& S, const bf16* stg,
-                           const unsigned char* wsm, const Sink& sink, const Walk& wk) {
+__device__ unsigned stage_head(const Geo& G, const Stage& S, const bf16* stg,
+                               const unsigned char* wsm, const Sink& sink, const Walk& wk) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
   const bf16* sw = reinterpret_cast<const bf16*>(wsm + S.w_off);
   float bias[NT][2];
@@ -594,6 +623,7 @@ __device__ void stage_head(const Geo& G, const Stage& S, const bf16* stg,
       koff[kc][e] = c * G.rh * G.rwp + (tap / 3 - 1) * G.rwp + (tap % 3 - 1);
     }
   const bf16 zero = __float2bfloat16_rn(0.f);
+  unsigned bad = 0u;
   for (int mt = warp; mt < wk.nmt; mt += BW) {
     const int p0 = wk.p0(G, mt);
     int sbase[2];
@@ -621,9 +651,10 @@ __device__ void stage_head(const Geo& G, const Stage& S, const bf16* stg,
         nt_mma_bf16(acc[2 * np + 1], a, bq[2], bq[3]);
       }
     }
-    store_acc<NT>(acc, bias, S.relu, wk.pixel(G, p0 + lane / 4),
-                  wk.pixel(G, p0 + lane / 4 + 8), sink);
+    bad |= store_acc<NT>(acc, bias, S.relu, wk.pixel(G, p0 + lane / 4),
+                         wk.pixel(G, p0 + lane / 4 + 8), sink);
   }
+  return bad;
 }
 
 // A depthwise layer's B fragments for chunk q, tap `tap`: the layer as a
@@ -689,8 +720,8 @@ __device__ __forceinline__ void dw_fma(int rw, const bf16* src, int s_in, int p0
 // (a tile whose input holds an Inf or NaN), each chunk whose sums are not
 // all finite is summed again per channel (dw_fma) before it is finished.
 template <int KC, int NT, bool PAIR, bool CHECKED>
-__device__ void stage_dw(const Geo& G, const Stage& S, const bf16* src,
-                         const unsigned char* wsm, const Sink& sink, const Walk& wk) {
+__device__ unsigned stage_dw(const Geo& G, const Stage& S, const bf16* src,
+                             const unsigned char* wsm, const Sink& sink, const Walk& wk) {
   constexpr bool REG_W = KC <= 2, REG_B = PAIR && KC * NT <= 8;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
   const int s_in = G.smax, ks = KC * 16 + 8;
@@ -713,6 +744,7 @@ __device__ void stage_dw(const Geo& G, const Stage& S, const bf16* src,
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) load_b(sw, 0, NT * 8, ks, np, q, breg[q][np]);
   }
+  unsigned bad = 0u;
   for (int mt = warp; mt < wk.nmt; mt += BW) {
     const int p0 = wk.p0(G, mt);
     const Px pa = wk.pixel(G, p0 + lane / 4), pb = wk.pixel(G, p0 + lane / 4 + 8);
@@ -758,106 +790,98 @@ __device__ void stage_dw(const Geo& G, const Stage& S, const bf16* src,
           nt_mma_bf16(acc[2 * np + 1], a, bq[2], bq[3]);
         }
       } else {
-        sink.put(pa, 16 * q + 2 * t, a[0]);
-        sink.put(pb, 16 * q + 2 * t, a[1]);
-        sink.put(pa, 16 * q + 8 + 2 * t, a[2]);
-        sink.put(pb, 16 * q + 8 + 2 * t, a[3]);
+        bad |= sink.put(pa, 16 * q + 2 * t, a[0]);
+        bad |= sink.put(pb, 16 * q + 2 * t, a[1]);
+        bad |= sink.put(pa, 16 * q + 8 + 2 * t, a[2]);
+        bad |= sink.put(pb, 16 * q + 8 + 2 * t, a[3]);
       }
     }
-    if constexpr (PAIR) store_acc<NT>(acc, bias, S.relu, pa, pb, sink);
+    if constexpr (PAIR) bad |= store_acc<NT>(acc, bias, S.relu, pa, pb, sink);
   }
+  return bad;
 }
 
 template <int KC, bool CHECKED>
-__device__ void stage_pair(int nt, const Geo& G, const Stage& S, const bf16* src,
-                           const unsigned char* wsm, const Sink& sink, const Walk& wk) {
+__device__ unsigned stage_pair(int nt, const Geo& G, const Stage& S, const bf16* src,
+                               const unsigned char* wsm, const Sink& sink, const Walk& wk) {
   switch (nt) {
-    case 2: stage_dw<KC, 2, true, CHECKED>(G, S, src, wsm, sink, wk); break;
-    case 4: stage_dw<KC, 4, true, CHECKED>(G, S, src, wsm, sink, wk); break;
-    case 6: stage_dw<KC, 6, true, CHECKED>(G, S, src, wsm, sink, wk); break;
-    default: stage_dw<KC, 8, true, CHECKED>(G, S, src, wsm, sink, wk); break;
+    case 2: return stage_dw<KC, 2, true, CHECKED>(G, S, src, wsm, sink, wk);
+    case 4: return stage_dw<KC, 4, true, CHECKED>(G, S, src, wsm, sink, wk);
+    case 6: return stage_dw<KC, 6, true, CHECKED>(G, S, src, wsm, sink, wk);
+    default: return stage_dw<KC, 8, true, CHECKED>(G, S, src, wsm, sink, wk);
   }
 }
 
 // A depthwise stage (alone or paired), checked: run only in a tile whose
-// input holds an Inf or NaN, out of line so that its code stays out of the
-// unchecked stages' (its arguments by value, so that the caller's take no
-// address).
-__device__ __noinline__ void dw_stage_checked(int nt, int kc, const Geo G, const Stage S,
-                                              const bf16* src, const unsigned char* wsm,
-                                              const Sink sink, const Walk wk) {
+// input, or an earlier stage's output, holds an Inf or NaN, out of line so
+// that its code stays out of the unchecked stages' (its arguments by value,
+// so that the caller's take no address).
+__device__ __noinline__ unsigned dw_stage_checked(int nt, int kc, const Geo G, const Stage S,
+                                                  const bf16* src, const unsigned char* wsm,
+                                                  const Sink sink, const Walk wk) {
   if (S.kind == ST_DW) {
     switch (kc) {
-      case 1: stage_dw<1, 2, false, true>(G, S, src, wsm, sink, wk); break;
-      case 2: stage_dw<2, 2, false, true>(G, S, src, wsm, sink, wk); break;
-      case 3: stage_dw<3, 2, false, true>(G, S, src, wsm, sink, wk); break;
-      default: stage_dw<4, 2, false, true>(G, S, src, wsm, sink, wk); break;
+      case 1: return stage_dw<1, 2, false, true>(G, S, src, wsm, sink, wk);
+      case 2: return stage_dw<2, 2, false, true>(G, S, src, wsm, sink, wk);
+      case 3: return stage_dw<3, 2, false, true>(G, S, src, wsm, sink, wk);
+      default: return stage_dw<4, 2, false, true>(G, S, src, wsm, sink, wk);
     }
-    return;
   }
   switch (kc) {
-    case 1: stage_pair<1, true>(nt, G, S, src, wsm, sink, wk); break;
-    case 2: stage_pair<2, true>(nt, G, S, src, wsm, sink, wk); break;
-    case 3: stage_pair<3, true>(nt, G, S, src, wsm, sink, wk); break;
-    default: stage_pair<4, true>(nt, G, S, src, wsm, sink, wk); break;
+    case 1: return stage_pair<1, true>(nt, G, S, src, wsm, sink, wk);
+    case 2: return stage_pair<2, true>(nt, G, S, src, wsm, sink, wk);
+    case 3: return stage_pair<3, true>(nt, G, S, src, wsm, sink, wk);
+    default: return stage_pair<4, true>(nt, G, S, src, wsm, sink, wk);
   }
 }
 
-// One stage, its depthwise layer checked or not.
-__device__ void run_stage(const Geo& G, const Stage& S, const bf16* src,
-                          const unsigned char* wsm, const Sink& sink, const Walk& wk,
-                          bool checked) {
+// One stage, its depthwise layer checked or not; the OR of exponent_carry2
+// of what this thread stored into the next buffer.
+__device__ unsigned run_stage(const Geo& G, const Stage& S, const bf16* src,
+                              const unsigned char* wsm, const Sink& sink, const Walk& wk,
+                              bool checked) {
   const int nt = ceil16(S.cout) / 8, kc = ceil16(S.cin) / 16;
   switch (S.kind) {
     case ST_HEAD:
       switch (nt) {
-        case 2: stage_head<2>(G, S, src, wsm, sink, wk); break;
-        case 4: stage_head<4>(G, S, src, wsm, sink, wk); break;
-        case 6: stage_head<6>(G, S, src, wsm, sink, wk); break;
-        default: stage_head<8>(G, S, src, wsm, sink, wk); break;
+        case 2: return stage_head<2>(G, S, src, wsm, sink, wk);
+        case 4: return stage_head<4>(G, S, src, wsm, sink, wk);
+        case 6: return stage_head<6>(G, S, src, wsm, sink, wk);
+        default: return stage_head<8>(G, S, src, wsm, sink, wk);
       }
-      break;
     case ST_DENSE:
       switch (nt) {
-        case 2: stage_dense<2>(G, S, src, wsm, sink, wk); break;
-        case 4: stage_dense<4>(G, S, src, wsm, sink, wk); break;
-        case 6: stage_dense<6>(G, S, src, wsm, sink, wk); break;
-        default: stage_dense<8>(G, S, src, wsm, sink, wk); break;
+        case 2: return stage_dense<2>(G, S, src, wsm, sink, wk);
+        case 4: return stage_dense<4>(G, S, src, wsm, sink, wk);
+        case 6: return stage_dense<6>(G, S, src, wsm, sink, wk);
+        default: return stage_dense<8>(G, S, src, wsm, sink, wk);
       }
-      break;
     case ST_DW:
-      if (checked) {
-        dw_stage_checked(nt, kc, G, S, src, wsm, sink, wk);
-        break;
-      }
+      if (checked) return dw_stage_checked(nt, kc, G, S, src, wsm, sink, wk);
       switch (kc) {
-        case 1: stage_dw<1, 2, false, false>(G, S, src, wsm, sink, wk); break;
-        case 2: stage_dw<2, 2, false, false>(G, S, src, wsm, sink, wk); break;
-        case 3: stage_dw<3, 2, false, false>(G, S, src, wsm, sink, wk); break;
-        default: stage_dw<4, 2, false, false>(G, S, src, wsm, sink, wk); break;
+        case 1: return stage_dw<1, 2, false, false>(G, S, src, wsm, sink, wk);
+        case 2: return stage_dw<2, 2, false, false>(G, S, src, wsm, sink, wk);
+        case 3: return stage_dw<3, 2, false, false>(G, S, src, wsm, sink, wk);
+        default: return stage_dw<4, 2, false, false>(G, S, src, wsm, sink, wk);
       }
-      break;
     default:
-      if (checked) {
-        dw_stage_checked(nt, kc, G, S, src, wsm, sink, wk);
-        break;
-      }
+      if (checked) return dw_stage_checked(nt, kc, G, S, src, wsm, sink, wk);
       switch (kc) {
-        case 1: stage_pair<1, false>(nt, G, S, src, wsm, sink, wk); break;
-        case 2: stage_pair<2, false>(nt, G, S, src, wsm, sink, wk); break;
-        case 3: stage_pair<3, false>(nt, G, S, src, wsm, sink, wk); break;
-        default: stage_pair<4, false>(nt, G, S, src, wsm, sink, wk); break;
+        case 1: return stage_pair<1, false>(nt, G, S, src, wsm, sink, wk);
+        case 2: return stage_pair<2, false>(nt, G, S, src, wsm, sink, wk);
+        case 3: return stage_pair<3, false>(nt, G, S, src, wsm, sink, wk);
+        default: return stage_pair<4, false>(nt, G, S, src, wsm, sink, wk);
       }
-      break;
   }
 }
 
 // A layer's padded channels [c, ceil16(c)) of every region pixel set to 0,
-// in a tile whose input holds an Inf or NaN: there the products of their
-// zero weights with an Inf are NaN, which the next layer's zero weights
-// would carry into every channel of the pixel, where the reference has no
-// such channel (and its relu may have made an -Inf a 0). A finite tile's
-// padded channels are 0 already (zero weights and biases).
+// in a tile whose input or an earlier stage's output holds an Inf or NaN:
+// there the products of their zero weights with an Inf are NaN, which the
+// next layer's zero weights would carry into every channel of the pixel,
+// where the reference has no such channel (and its relu may have made an
+// -Inf a 0). A finite tile's padded channels are 0 already (zero weights
+// and biases).
 __device__ __noinline__ void zero_padded(bf16* buf, int npix, int stride, int c) {
   const int np = ceil16(c) - c;
   const bf16 z = __float2bfloat16_rn(0.f);
@@ -933,7 +957,7 @@ __global__ void __launch_bounds__(BT, 1)
     for (int i = tid; i < P.c0 * P.rh * P.rwp / 2; i += BT)
       ones |= ((reinterpret_cast<const unsigned*>(stg)[i] & 0x7f807f80u) + 0x00800080u) &
               0x80008000u;
-    const bool nonfinite = __syncthreads_or(ones != 0);
+    bool nonfinite = __syncthreads_or(ones != 0);
     if (P.transpose) {
       // The input box [c0][rh][rwp] as pixel rows of buffer 1, channels padded with zeros.
       const int cp = ceil16(P.c0) / 2;
@@ -946,12 +970,21 @@ __global__ void __launch_bounds__(BT, 1)
                   c + 1 < P.c0 ? stg[(c + 1) * plane + sidx] : z);
       }
     }
+    // Whether this thread stored an Inf or NaN into the next buffer in the
+    // previous stage (NONFINITE2 bits of `bad`): an overflow inside the
+    // chain, reduced at the barrier that opens the next stage, makes every
+    // later stage of the tile run checked, as a non-finite input does.
+    unsigned bad = 0u;
     for (int si = 0; si < P.ns; ++si) {
       const Stage S = P.st[si];
       const bool last = si == P.ns - 1;
       // The previous tile's output store has read the output stage.
       if (last && tid == 0) nt_bulk_wait_read<0>();
-      __syncthreads();
+      nonfinite = __syncthreads_or(nonfinite || (bad & NONFINITE2) != 0u);
+      if (nonfinite && si > 0 && P.st[si - 1].cout % 16) {
+        zero_padded(buffer(P, smem, (si - 1) & 1), npix, P.smax, P.st[si - 1].cout);
+        __syncthreads();
+      }
       const bf16* src = si > 0 ? buffer(P, smem, (si - 1) & 1)
                                : P.transpose ? buffer(P, smem, 1) : stg;
       const Sink sink{last ? nullptr : buffer(P, smem, si & 1), P.smax, ostg, S.cout,
@@ -959,11 +992,7 @@ __global__ void __launch_bounds__(BT, 1)
       const Walk wk = last ? Walk{0, 0, P.th * (P.tw / 16), 1, y0, x0}
                            : Walk{S.h * P.rw, (P.rh - S.h) * P.rw,
                                   ((P.rh - 2 * S.h) * P.rw + 15) / 16, 0, y0, x0};
-      run_stage(G, S, src, smem, sink, wk, nonfinite);
-      if (nonfinite && !last && S.cout % 16) {
-        __syncthreads();
-        zero_padded(buffer(P, smem, si & 1), npix, P.smax, S.cout);
-      }
+      bad = run_stage(G, S, src, smem, sink, wk, nonfinite);
     }
     nt_fence_proxy_async();
     __syncthreads();

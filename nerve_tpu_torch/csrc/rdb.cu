@@ -35,80 +35,75 @@
 // all of a row's pairs before any use. (Reading them from the staged tile
 // instead would hold the 4 residual stages of 8 through each epilogue,
 // half of the ring that keeps the loads in flight.)
-// float32 (kept exact, no TF32) runs as FP32 FMAs on the CUDA cores, a
-// block computing 64 pixels x 64 channels with 4 x 4 sums per thread over
-// 32-channel slices staged in shared memory.
+// float32 (kept exact, no TF32) runs `lff_f32_kernel` below: the float32
+// dense layers' implicit-GEMM family (conv_f32.cuh, whose note covers both)
+// as a 1x1 layer with this epilogue. In float32 the fusion is bound by its
+// operations (at 1080p x 64: 59.4 GFLOP, 0.887 ms at 67 TFLOP/s, against
+// 2.39 GB, 0.713 ms).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv_f32.cuh"
 #include "nerve_tpu_torch.h"
+
+using namespace ntf32;
 
 namespace {
 
-constexpr int NTHREADS = 256, NT = 64;
+template <int CFG, bool TMA>
+__global__ void __launch_bounds__(f32_max_threads(1, CFG), 1)
+    lff_f32_kernel(const __grid_constant__ CUtensorMap m0, const __grid_constant__ CUtensorMap m1,
+                   const __grid_constant__ CUtensorMap m2,
+                   const __grid_constant__ CUtensorMap om, const F32Params p) {
+  conv_f32<1, CFG, TMA, F32_EPI_LFF>(&m0, &m1, &m2, &om, p);
+}
 
-// ----------------------------------------------------------------- float32
-
-constexpr int FMA_PT = 64, FMA_KC = 32;
-
-__global__ void __launch_bounds__(NTHREADS)
-    lff_fma_kernel(const float* __restrict__ cat, int ccs, int ccat, const float* __restrict__ w,
-                   const float* __restrict__ bias, float* __restrict__ out, int ocs, int c,
-                   long long npix, float res_scale) {
-  __shared__ float sa[FMA_KC][FMA_PT + 1];
-  __shared__ float sw[FMA_KC][NT];
-  const int tid = threadIdx.x;
-  const int tp = tid % 16, tn = tid / 16;
-  const long long p0 = blockIdx.x * (long long)FMA_PT;
-  const int n0 = blockIdx.y * NT;
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int l = 0; l < 4; ++l) acc[j][l] = 0.f;
-
-  for (int k0 = 0; k0 < ccat; k0 += FMA_KC) {
-    __syncthreads();
-    for (int i = tid; i < FMA_PT * FMA_KC; i += NTHREADS) {
-      const int k = i % FMA_KC, p = i / FMA_KC;
-      const long long gp = p0 + p;
-      const int gk = k0 + k;
-      sa[k][p] = (gp < npix && gk < ccat) ? cat[gp * ccs + gk] : 0.f;
-    }
-    for (int i = tid; i < FMA_KC * NT; i += NTHREADS) {
-      const int n = i % NT, k = i / NT;
-      const int gk = k0 + k, gn = n0 + n;
-      sw[k][n] = (gk < ccat && gn < c) ? w[(long long)gk * c + gn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < FMA_KC; ++k) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) a[j] = sa[k][tp + 16 * j];
-#pragma unroll
-      for (int l = 0; l < 4; ++l) bv[l] = sw[k][tn + 16 * l];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int l = 0; l < 4; ++l) acc[j][l] = fmaf(a[j], bv[l], acc[j][l]);
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const long long p = p0 + tp + 16 * j;
-    if (p >= npix) continue;
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int n = n0 + tn + 16 * l;
-      if (n < c) out[p * ocs + n] = (acc[j][l] + bias[n]) * res_scale + cat[p * ccs + n];
-    }
-  }
+template <int CFG>
+cudaError_t launch_lff_cfg(const F32Plan& pl, const F32Params& p, const CUtensorMap (&maps)[4],
+                           int route, const NtDeviceLimits& lim, cudaStream_t st, int* rec) {
+  if (route == F32_ROUTE_TMA)
+    return f32_launch<1, CFG, true, F32_EPI_LFF>(lff_f32_kernel<CFG, true>, pl, p, maps, route,
+                                                 lim, st, rec);
+  return f32_launch<1, CFG, false, F32_EPI_LFF>(lff_f32_kernel<CFG, false>, pl, p, maps, route,
+                                                lim, st, rec);
 }
 
 }  // namespace
+
+cudaError_t nt_lff_f32(const void* cat, int xcs, int ccat, const float* w, const float* bias,
+                       void* out, int ocs, int ocoff, int c, int b, int h, int wd,
+                       float res_scale, cudaStream_t stream, int* rec) {
+  NtDeviceLimits lim;
+  cudaError_t err = nt_device_limits(lim);
+  if (err != cudaSuccess) return err;
+  const void* xs[3] = {cat, cat, cat};
+  const int route = f32_route(xs, 1, xcs, ccat, 1);
+  F32Plan pl;
+  F32Params p;
+  CUtensorMap maps[4];
+  if (!f32_setup(xs, 1, xcs, ccat, c, 1, b, h, wd, route == F32_ROUTE_TMA, lim, pl, p, maps))
+    return cudaErrorInvalidValue;
+  p.wt = w;
+  p.wvec = p.cout % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  p.bias = bias;
+  p.out = static_cast<float*>(out);
+  p.ocs = ocs;
+  p.ocoff = ocoff;
+  p.vec = out != nullptr && ocs % 4 == 0 && ocoff % 4 == 0 &&
+          reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (!f32_output_map(pl, p, b, maps[3])) return cudaErrorInvalidValue;
+  p.res = static_cast<const float*>(cat);
+  p.rcs = xcs;
+  p.rvec = xcs % 4 == 0 && reinterpret_cast<uintptr_t>(cat) % 16 == 0;
+  p.res_scale = res_scale;
+  switch (pl.cfg) {
+    case 0: return launch_lff_cfg<0>(pl, p, maps, route, lim, stream, rec);
+    case 1: return launch_lff_cfg<1>(pl, p, maps, route, lim, stream, rec);
+    case 2: return launch_lff_cfg<2>(pl, p, maps, route, lim, stream, rec);
+    default: return launch_lff_cfg<3>(pl, p, maps, route, lim, stream, rec);
+  }
+}
 
 extern "C" int nt_rdb_lff(const void* cat, int cat_cstride, int ccat, const void* w,
                           const float* bias, void* out, int out_cstride, int out_coff, int c,
@@ -123,13 +118,8 @@ extern "C" int nt_rdb_lff(const void* cat, int cat_cstride, int ccat, const void
     return (int)nt_lff_bf16_wgmma(cat, cat_cstride, ccat, w, bias, out, out_cstride, out_coff,
                                   c, b, h, w_, res_scale, st);
   }
-  if (dtype == NT_F32) {
-    const long long npix = (long long)b * h * w_;
-    const dim3 grid((unsigned)((npix + FMA_PT - 1) / FMA_PT), (c + NT - 1) / NT);
-    lff_fma_kernel<<<grid, NTHREADS, 0, st>>>(
-        static_cast<const float*>(cat), cat_cstride, ccat, static_cast<const float*>(w), bias,
-        static_cast<float*>(out) + out_coff, out_cstride, c, npix, res_scale);
-    return (int)cudaGetLastError();
-  }
+  if (dtype == NT_F32)
+    return (int)nt_lff_f32(cat, cat_cstride, ccat, static_cast<const float*>(w), bias, out,
+                           out_cstride, out_coff, c, b, h, w_, res_scale, st, nullptr);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,14 +21,19 @@
   and per-sample Fisher pass (host clock to a synchronise, median of 3
   after one untimed), and the peak device memory of the second-order step.
 * ``float32_rows``: the float32 route at the meta step's shapes (window 3,
-  batch 4, 64²): the conv chain's ``conv_fma_kernel`` at the head (12 ×
-  64² × 3 → 64) and at 64 → 64 (4 × 64² × 64), one RDB block (5
-  ``conv_fma_kernel`` layers + ``lff_fma_kernel``) at 4 × 64² × 64 and the
-  correlation (d = 4) on the 8 neighbour pairs of 64² × 64: kernel, plain,
-  bound (67 TFLOP/s float32, 3.35 TB/s) and library ms (cuDNN ``F.conv2d``
-  with TF32 off; for the RDB its five convolutions and ``torch.matmul``,
-  products only, for the fusion; none for the correlation), CUDA events;
-  ``--small`` at 16².
+  batch 4, 64²): the float32 dense layer (``csrc/conv_f32.cuh``) at the
+  head (12 × 64² × 3 → 64) and at 64 → 64 (4 × 64² × 64), one RDB block
+  (5 dense layers + the float32 fusion) at 4 × 64² × 64, the fusion alone
+  (224 → 64) at 4 × 64² and at 1 × 1080 × 1920, and the correlation (d =
+  4) on the 8 neighbour pairs of 64² × 64: kernel, plain, bound (67
+  TFLOP/s float32, 3.35 TB/s) and library ms (cuDNN ``F.conv2d`` with TF32
+  off; for the RDB its five convolutions and ``torch.matmul``, products
+  only, for the fusion; ``torch.matmul`` for the fusion alone; none for the
+  correlation), CUDA events, the wrapper's host work included (a single
+  call finds the card idle, so its time is the host's work and then the
+  kernel's); beside it the host clock a call over 50 calls without a
+  synchronise (``_host_ms``: the wrapper's host work); ``--small`` at 16²
+  (the fusion's second row at 64²).
 * ``profile_meta_step`` (``--profile DIR``): the device time of a
   second-order meta step by part (the hand-written kernels, the inner
   gradients' recompute of the plain versions, the rest), busy time, idle
@@ -311,6 +316,19 @@ def _bound(flops: float, nbytes: float) -> tuple:
     return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
+def _host_ms(fn, dev, n: int = 50) -> float:
+    """Host clock a call of ``fn`` over ``n`` calls without a synchronise
+    (the card's queue runs behind): the wrapper's host work a call."""
+    fn()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    _sync(dev)
+    return ms
+
+
 def float32_rows(dev, reps: int = 25, small: bool = False) -> Dict[str, dict]:
     """{case: kernel / plain / bound / library ms, max|err|} (module doc)."""
     g = torch.Generator().manual_seed(12)
@@ -325,6 +343,7 @@ def float32_rows(dev, reps: int = 25, small: bool = False) -> Dict[str, dict]:
         err = (y.float() - ref).abs().max().item()
         bound, by = _bound(flops, nbytes)
         out[name] = {"kernel_ms": _common.median_ms(kern, dev, reps),
+                     "host_ms": _host_ms(kern, dev),
                      "plain_ms": _common.median_ms(plain, dev, reps),
                      "library_ms": None if lib is None else _common.median_ms(lib, dev, reps),
                      "bound_ms": bound, "bound_by": by, "flops": flops, "bytes": nbytes,
@@ -332,9 +351,9 @@ def float32_rows(dev, reps: int = 25, small: bool = False) -> Dict[str, dict]:
                      "launches": launched}
         r = out[name]
         lib_txt = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"float32 {name}: kernel {r['kernel_ms']:.4f} ms ({launched}), plain "
-              f"{r['plain_ms']:.4f}, library {lib_txt}, bound {bound:.4f} ({by}); max|err| "
-              f"{err:.3e}", flush=True)
+        print(f"float32 {name}: kernel {r['kernel_ms']:.4f} ms ({launched}; the wrapper's host "
+              f"work {r['host_ms']:.4f} ms a call), plain {r['plain_ms']:.4f}, library {lib_txt}, "
+              f"bound {bound:.4f} ({by}); max|err| {err:.3e}", flush=True)
 
     for name, (n, cin) in {"conv head 3->64": (12, 3), "conv 64->64": (4, 64)}.items():
         x = torch.rand((n, hw, hw, cin), generator=g).to(dev)
@@ -364,6 +383,19 @@ def float32_rows(dev, reps: int = 25, small: bool = False) -> Dict[str, dict]:
     nbytes = 4 * (2 * x.numel() + sum(p.numel() for p in params))
     row(f"rdb block ({4}x{hw}x{hw}x64)", lambda: ops.rdb_chain_apply(x, [params]),
         lambda: rdb.rdb_chain_plain(x, [params]), library_block, flops, nbytes)
+
+    gd = torch.Generator(device=dev).manual_seed(12)  # the concatenations, made on the device
+    for n, h, w in ((4, hw, hw), (1, 64, 64) if small else (1, 1080, 1920)):
+        name = f"fusion 224->64 ({n}x{h}x{w})"
+        cat = torch.rand((n, h, w, 224), generator=gd, device=dev)
+        fw, fb = params[10], params[11]
+        npix = n * h * w
+        flat = cat.reshape(npix, 224)
+        fusion = rdb.lff_launch if dispatch.use_kernel(cat) else rdb.lff_plain  # CPU: plain
+        row(name, lambda cat=cat, fusion=fusion: fusion(cat, fw, fb),
+            lambda cat=cat: rdb.lff_plain(cat, fw, fb), lambda flat=flat: torch.matmul(flat, fw),
+            2 * fw.numel() * npix, 4 * (cat.numel() + fw.numel() + 64 + npix * 64))
+        del cat, flat
 
     f1 = torch.randn((8, hw, hw, 64), generator=g).to(dev)
     f2 = torch.randn((8, hw, hw, 64), generator=g).to(dev)

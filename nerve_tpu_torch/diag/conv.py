@@ -1,5 +1,6 @@
 """The dense convolutions where the serving paths run them, at 1080p:
-``python -m nerve_tpu_torch.diag.conv [--int8] [--slices] [--device cpu] [--small]``.
+``python -m nerve_tpu_torch.diag.conv [--int8] [--slices] [--float32] [--device cpu]
+[--small]``.
 
 ``csrc/conv_chain.cu``'s layer (``nt_conv2d``) is the flagship's conv-chain
 kernel and the RDB's dense-layer kernel. The cases, in bfloat16, each with
@@ -41,6 +42,12 @@ bias in the call):
   column and per channel) streaming slices and the lightweight slice,
   seeded as ``chip_smoke.py`` seeds them (median of the timed frames, the
   first untimed);
+* with ``--float32``, only the float32 route (``csrc/conv_f32.cuh``) with
+  TF32 off: ``diag.federated.float32_layers`` (the lightweight head and
+  tail, 64 → 64, ``dw3``, at 8 × 64² and 1080p) and
+  ``diag.continual.float32_rows`` (the meta step's shapes, the RDB block,
+  the fusion alone at 4 × 64² and 1080p, the correlation), each beside its
+  plain version, cuDNN or ``torch.matmul`` and its bound;
 * with ``--profile DIR``, a ``torch.profiler`` trace of two steps of the
   bf16 and int8 (per column) slices (``profile``): wall and device-busy
   time, the device's idle share, the kernels by time, and per step the
@@ -107,9 +114,12 @@ def conv_params(g, widths, dev, acts=None, kinds=None):
 
 def serving_inputs(g, dev, dt, h=H, w=W):
     """The five conv-chain sites' inputs and layers at ``h`` × ``w``, in
-    ``SITES`` order: [(input, layers)]."""
+    ``SITES`` order: [(input, layers)]. The activations are drawn on the
+    device (a generator seeded from ``g``), the layers from ``g``."""
+    gd = torch.Generator(device=dev).manual_seed(int(torch.randint(2**31, (1,), generator=g)))
+
     def act(*shape):
-        return _randn(g, shape).to(dev, dt)
+        return torch.randn(shape, generator=gd, device=dev).to(dt)
     return [
         (act(1, h, w, 3), conv_params(g, [3, FEATURES], dev, ["relu"])),
         (act(2, h // 2, w // 2, 81), conv_params(g, [81, 128, 64, 32, 2], dev)),
@@ -623,11 +633,24 @@ def main(argv=None) -> dict:
                    help="also time each RDB fusion alone (bf16 and int8)")
     p.add_argument("--profile", metavar="DIR",
                    help="also profile the bf16 and int8 slices, writing their traces into DIR")
+    p.add_argument("--float32", action="store_true",
+                   help="time only the float32 route's rows (dense layers and fusion)")
     args = p.parse_args(argv)
     dev = _common.device_of(args)
     print(f"package {nerve_tpu_torch.__file__}", flush=True)
     if dev.type == "cuda":
         print(f"device {torch.cuda.get_device_name(dev)}", flush=True)
+    if args.float32:
+        from nerve_tpu_torch.diag import continual as diag_continual
+        from nerve_tpu_torch.diag import federated as diag_fed
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        reps = max(args.reps, 25 if dev.type == "cuda" else 1)
+        result = {"float32_layers": diag_fed.float32_layers(dev, reps, args.small),
+                  "float32_rows": diag_continual.float32_rows(dev, reps, args.small)}
+        print(json.dumps(result))
+        return result
     result = {"cases": measure(dev, args.reps, args.small)}
     if args.int8:
         result["int8"] = measure_int8(dev, args.reps, args.small)

@@ -17,13 +17,16 @@
   at LR 64² → 128², with the peak device memory of the 64² fit (host clock
   to a synchronise, median of 3 after 1 untimed).
 * ``float32_layers``: the float32 route of the conv chain's kernels, one
-  ``ops.conv_chain_apply(x, [layer])`` call per case: ``conv_fma_kernel`` at
-  the lightweight head (3 → 32) and tail (32 → 12) and at a 64-wide
-  flagship site (64 → 64), ``dw3`` at 32 channels, at the client fit's
-  shape (8 × 64 × 64) and at 1080p; beside each the plain version's time,
-  cuDNN's (``F.conv2d``, channels_last, TF32 off) and the bound (the
-  multiply-adds at the 67 TFLOP/s float32 peak, or the input, weights and
-  output once at 3.35 TB/s), median of ``--reps`` CUDA-event timings.
+  ``ops.conv_chain_apply(x, [layer])`` call per case: the float32 dense
+  layer (``csrc/conv_f32.cuh``) at the lightweight head (3 → 32) and tail
+  (32 → 12) and at a 64-wide flagship site (64 → 64), ``dw3`` at 32
+  channels, at the client fit's shape (8 × 64 × 64) and at 1080p; beside
+  each the plain version's time, cuDNN's (``F.conv2d``, channels_last,
+  TF32 off) and the bound (the multiply-adds at the 67 TFLOP/s float32
+  peak, or the input, weights and output once at 3.35 TB/s), median of
+  ``--reps`` CUDA-event timings, the wrapper's host work included; the
+  kernel's max|err| against the plain version, also relative to
+  max|plain|, and its launches.
 * ``profile_round`` (``--profile DIR``): the device time of one round by
   part (the hand-written kernels, the backward's recompute of the plain
   versions, the rest), busy time and idle share.
@@ -268,11 +271,12 @@ def float32_layers(dev, reps: int = 25, small: bool = False) -> Dict[str, dict]:
     """{case: kernel / plain / cuDNN / bound ms, what bounds it, max|err|}
     (see the module doc); ``small`` divides every spatial size by 8."""
     g = torch.Generator().manual_seed(11)
+    gd = torch.Generator(device=dev).manual_seed(11)  # the frames, made on the device
     out = {}
     for name, (xs, ws) in FP32_CASES.items():
         if small:
             xs = (xs[0], max(2, xs[1] // 8), max(2, xs[2] // 8), xs[3])
-        x = torch.rand(xs, generator=g).to(dev)
+        x = torch.rand(xs, generator=gd, device=dev)
         w = (torch.randn(ws, generator=g) * math.prod(ws[:-1]) ** -0.5).to(dev)
         layer = [(w, (0.1 * torch.randn(ws[-1], generator=g)).to(dev), "relu")]
         kern = _common.median_ms(lambda: ops.conv_chain_apply(x, layer), dev, reps)
@@ -284,11 +288,17 @@ def float32_layers(dev, reps: int = 25, small: bool = False) -> Dict[str, dict]:
         cout = ws[-1]
         nbytes = 4 * (x.numel() + w.numel() + cout + npix * cout)
         t_ops, t_bytes = flops / FP32_PEAK_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        err = _common.max_abs(ops.conv_chain_apply(x, layer), conv_chain.conv_chain_plain(x, layer))
+        dispatch.reset_launches()
+        y = ops.conv_chain_apply(x, layer)
+        launched = {k: v for k, v in dispatch.launches.items() if v}
+        ref = conv_chain.conv_chain_plain(x, layer)
+        err = _common.max_abs(y, ref)
         out[name] = {"kernel_ms": kern, "plain_ms": plain, "cudnn_ms": lib,
                      "bound_ms": max(t_ops, t_bytes),
                      "bound_by": "operations" if t_ops > t_bytes else "bytes",
-                     "flops": flops, "bytes": nbytes, "max_abs_err": err}
+                     "flops": flops, "bytes": nbytes, "max_abs_err": err,
+                     "rel_err": err / max(ref.abs().max().item(), 1e-30), "launches": launched}
+        del y, ref
         print(f"float32 {name} {tuple(xs)}: kernel {kern:.4f} ms, plain {plain:.4f}, cuDNN "
               f"{lib:.4f}, bound {max(t_ops, t_bytes):.4f} ({out[name]['bound_by']}); max|err| "
               f"{err:.3e}", flush=True)

@@ -42,9 +42,52 @@ from nerve_tpu_torch import ops
 from nerve_tpu_torch.diag import _common, probe
 from nerve_tpu_torch.diag.conv import (H, W, _sync, bound, chain_ops, cudnn_chain, nbytes,
                                        seeded_lightweight)
-from nerve_tpu_torch.ops import _build, dispatch, planar_chain
+from nerve_tpu_torch.ops import _build, conv_chain, dispatch, planar_chain
 
 LAUNCHES = 10_000  # host-clock calls per launch-path case
+BF16_MAX = float(torch.finfo(torch.bfloat16).max)
+
+
+def overflow_case(c: int, dev, seed: int = 0):
+    """A finite bf16 input and a body whose second layer's sums overflow
+    bf16 at a few pixels: (x (2, 3, 37, 101) planar, params). The body is
+    the lightweight one's shape at width ``c`` (3 -> c, 4 x (depthwise c,
+    1x1 c -> c + relu), c -> 12), every weight and bias positive, so that
+    the reference carries each overflow on as +Inf, never NaN. A 3 x 3
+    patch of the input is 1e4; the first depthwise layer's channel-0
+    weights are scaled by the power of two 2^e that takes its sums past the
+    bf16 maximum where the patch reaches them and leaves every other sum at
+    least 5 % below it (so that no sum's order decides), and the next 1x1
+    layer's weights from that channel by 2^-e, so that the finite values
+    after it are of the input's scale again."""
+    g = torch.Generator().manual_seed(seed)
+
+    def pos(*shape, std):
+        return torch.randn(shape, generator=g).abs() * std
+
+    params = [(pos(3, 3, 3, c, std=27 ** -0.5), pos(c, std=0.1), "relu")]
+    for _ in range(4):
+        params += [(pos(3, 3, c, std=1 / 3), pos(c, std=0.1), "none"),
+                   (pos(1, 1, c, c, std=c ** -0.5), pos(c, std=0.1), "relu")]
+    params.append((pos(3, 3, c, 12, std=(9 * c) ** -0.5), pos(12, std=0.1), "none"))
+    x = torch.rand((2, 3, 37, 101), generator=g)
+    x[1, :, 20:23, 40:43] = 1e4
+    x = x.to(torch.bfloat16)
+    # The first depthwise layer's channel-0 sums as the reference forms them.
+    head = planar_chain.planar_chain_plain(x, params[:1])[:, :1]
+    w0 = params[1][0][..., :1].to(torch.bfloat16)
+    s0 = conv_chain.depthwise_sums(head, w0).flatten()
+    for e in range(1, 127):
+        thr = BF16_MAX / 2.0 ** e
+        over = s0 > thr
+        near = (s0 > thr / 1.05) & (s0 < thr * 1.05)
+        if over.any() and not near.any() and over.float().mean() < 0.01:
+            break
+    else:
+        raise AssertionError("no scale puts the overflow apart from the other sums")
+    params[1][0][..., 0] *= 2.0 ** e
+    params[2][0][:, :, 0, :] *= 2.0 ** -e
+    return x.to(dev), [(w.to(dev), b.to(dev), a) for w, b, a in params]
 
 
 def body_cases(dev, small: bool):

@@ -48,8 +48,8 @@ from nerve_tpu_torch.utils import data as data_lib
 BATCH, LR_SIZE, FEATURES, BLOCKS = 16, 64, 64, 8
 SMALL = (2, 13, 17, 16)  # B, H, W, C of the small cases
 # Hand-written kernels by the words of their names (csrc/*.cu).
-KERNEL_WORDS = ("conv_wgmma", "lff_wgmma", "conv_fma", "corr_kernel", "dw3_", "d2s_packed",
-                "planar_", "i8_wgmma", "quantize_i8", "taps_", "rdb_lff", "probe")
+KERNEL_WORDS = ("conv_wgmma", "lff_wgmma", "conv_f32", "lff_f32", "corr_kernel", "dw3_",
+                "d2s_packed", "planar_", "i8_wgmma", "quantize_i8", "taps_", "rdb_lff", "probe")
 PARTS = ("train.forward", "train.backward", "train.optimizer", dispatch.RECOMPUTE_RANGE)
 
 

@@ -49,6 +49,7 @@ SIGNATURES = {
     "nt_correlation_launch": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P)),
     "nt_conv2d": (_I, (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P)),
+    "nt_conv2d_f32_launch": (_I, (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P)),
     "nt_dwconv3": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "nt_dwconv3_launch": (_I, (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P)),
     "nt_planar_chain": (_I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
@@ -78,7 +79,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.h")):
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")) + sorted(CSRC.glob("*.h")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"libnerve_tpu_torch_{h.hexdigest()[:16]}.so"

@@ -31,8 +31,17 @@ by shape. A tensor whose channel count is a multiple of 8, or a list of up
 to three tensors of equal width, a multiple of 16, is read in place (a
 list without a concatenation); anything else (the head's 3 channels, the
 flow head's 81) is first copied into one buffer zero-padded to a multiple
-of 8 channels. The float32 dense layer takes float32 HWIO weights and one
-tensor (a list is concatenated first).
+of 8 channels.
+
+The float32 dense layer (``csrc/conv_f32.cuh``: an implicit GEMM of FP32
+FMAs, no TF32) takes the model's float32 HWIO weights as they are and reads
+its input in place on the route ``f32_input_route`` gives by shape: TMA
+boxes where cin and every part's channels are multiples of 4 and the parts
+16-byte aligned, 4-byte ``cp.async`` otherwise (the 3-channel heads); only
+a list whose parts differ in width (or a non-contiguous part) is copied
+into one buffer first. ``f32_plan`` is its launch plan (tile, N tile,
+stages, resident weights), the same rule as the kernel's; counter
+``conv_f32`` (beside the op's ``conv_chain``).
 
 Under autograd the chain is a ``torch.autograd.Function`` (``_ConvChain``),
 the port of ``conv_chain_fused``'s ``custom_vjp``: the forward is the
@@ -61,7 +70,23 @@ DW_LAUNCH_RECORD = ("grid", "threads", "dynamic_smem_bytes", "static_smem_bytes"
                     "spill_bytes", "tiles", "tile_h", "tile_w", "slices", "slice_channels")
 N_TILES = (8, 16, 32, 64, 128)  # the bf16 kernel's output-channel tiles (wgmma N)
 CHUNK = 16  # input channels per K step of the bf16 kernel
-MAX_PARTS = 3  # input tensors the bf16 kernel reads in place
+MAX_PARTS = 3  # input tensors the dense kernels read in place
+# The float32 dense layer's plan, as csrc/conv_f32.cuh has it: by kernel
+# size and cout, (largest cout, output channels a thread, warps across N,
+# warps down M); input channels of a K chunk by kernel size; pixels a
+# thread down a column; tile columns; ring stages; stages beside resident
+# weights; bytes of the ring's barriers.
+F32_CFG = {1: ((4, 4, 1, 4), (16, 8, 2, 2), (32, 8, 4, 1), (64, 16, 4, 2)),
+           3: ((4, 4, 1, 4), (16, 8, 2, 2), (32, 8, 4, 1), (64, 8, 8, 1))}
+F32_CHUNK = {1: 16, 3: 8}
+F32_P, F32_TW, F32_MAX_STAGES, F32_MIN_RESIDENT_STAGES, F32_BAR_BYTES = 8, 32, 4, 3, 1024
+F32_GROUP = {1: 16, 3: 4}  # channels of a staged group (one TMA box)
+F32_SPLIT, F32_SPLIT_THREADS = 2, 128  # a small grid's warp sets over each K chunk
+H100_SMEM, H100_SMS = 232448, 132  # shared memory a block may opt in to; SMs
+F32_LAUNCH_RECORD = ("grid", "threads", "dynamic_smem_bytes", "static_smem_bytes", "registers",
+                     "spill_bytes", "tiles", "tile_h", "tile_w", "n_tile", "chunk", "stages",
+                     "resident", "route", "split", "staged_store")
+F32_ROUTES = ("tma", "async")  # csrc/conv_f32.cuh F32_ROUTE_TMA, F32_ROUTE_ASYNC
 
 
 def _layer_specs(params: Sequence[Entry]):
@@ -199,6 +224,142 @@ def padded_input(xs: Sequence[torch.Tensor], cin: int) -> torch.Tensor:
     return torch.cat([*xs, xs[0].new_zeros((*xs[0].shape[:3], pad))], dim=-1)
 
 
+def _round128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _round1024(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def f32_tiles(k: int, cfg: int, cout: int, b: int, h: int, w: int) -> int:
+    """Tiles of a (b, h, w) output of ``cout`` channels in configuration
+    ``cfg`` of a k×k layer."""
+    _maxc, o, wn, wm = F32_CFG[k][cfg]
+    return b * -(-h // (F32_P * wm)) * -(-w // F32_TW) * -(-cout // (o * wn))
+
+
+def f32_plan(cin: int, cout: int, k: int, b: int = 1, h: int = 1080, w: int = 1920,
+             smem: int = H100_SMEM, sms: int = H100_SMS) -> dict:
+    """The float32 dense layer's launch plan for ``cin`` → ``cout`` channels
+    of a k×k layer on a (b, h, w) frame, on a device of ``sms`` SMs whose
+    blocks may use ``smem`` bytes of shared memory. ``csrc/conv_f32.cuh``
+    ``f32_plan`` is the same rule:
+
+    * the configuration (``F32_CFG`` by cout); a grid of fewer than two
+      tiles an SM takes the next narrower one while that gives more tiles,
+      and then, in a block of at most ``F32_SPLIT_THREADS`` threads,
+      ``split``s each K chunk over ``F32_SPLIT`` warp sets whose sums meet
+      in shared memory; its tile (``tile_h`` × ``tile_w`` pixels), N tile,
+      threads and K chunk;
+    * whether the weights stay resident in shared memory (one N tile,
+      beside ``F32_MIN_RESIDENT_STAGES`` stages) or ride in each stage, and
+      the ring's stages;
+    * whether the output leaves through a staging area of one unit (8 rows
+      × 32 pixels × at most 32 channels) and TMA stores, where that keeps
+      the weights' residency and three stages;
+    * the block's bytes: a block of at most ``F32_SPLIT_THREADS`` threads
+      keeps to half the shared memory where that keeps the weights'
+      residency (two blocks an SM).
+
+    Raises where not even two stages fit."""
+    if cin < 1 or cout < 1 or k not in (1, 3):
+        raise ValueError(f"no float32 plan for {cin} -> {cout}, {k}x{k}")
+    table = F32_CFG[k]
+    cfg = next((i for i, c in enumerate(table) if cout <= c[0]), len(table) - 1)
+    while (cfg > 0 and f32_tiles(k, cfg, cout, b, h, w) < 2 * sms
+           and f32_tiles(k, cfg - 1, cout, b, h, w) > f32_tiles(k, cfg, cout, b, h, w)):
+        cfg -= 1
+    _maxc, o, wn, wm = table[cfg]
+    nt, th, ck, tiles = o * wn, F32_P * wm, F32_CHUNK[k], f32_tiles(k, cfg, cout, b, h, w)
+    base = 32 * wn * wm
+    split = F32_SPLIT if tiles < 2 * sms and base <= F32_SPLIT_THREADS and cin > 4 else 1
+    red = (split - 1) * base * F32_P * o * 4
+    ih, iw, gc = th + k - 1, F32_TW + k - 1, F32_GROUP[k]
+    in_bytes = ck // gc * _round128(ih * iw * gc * 4)
+    ncot, ngroups = -(-cout // nt), -(-cin // gc)
+    wbytes = _round1024(ngroups * gc * k * k * nt * 4)
+
+    def fit(limit, out_bytes):
+        avail = limit - F32_BAR_BYTES - red - (out_bytes + 1024 if out_bytes else 0)
+        resident = ncot == 1 and wbytes + F32_MIN_RESIDENT_STAGES * in_bytes <= avail
+        stage = _round1024(in_bytes + (0 if resident else _round128(ck * k * k * nt * 4)))
+        stages = min(F32_MAX_STAGES, (avail - (wbytes if resident else 0)) // stage)
+        used = F32_BAR_BYTES + (wbytes if resident else 0) + stages * stage + red
+        if out_bytes:
+            used = _round1024(used) + out_bytes
+        return {"resident": resident, "stages": stages, "staged_store": bool(out_bytes),
+                "smem_bytes": used}
+
+    def best(limit):
+        plain, staged = fit(limit, 0), fit(limit, F32_P * F32_TW * min(nt, 32) * 4)
+        ok = staged["resident"] == plain["resident"] and staged["stages"] >= 3
+        return staged if ok else plain
+
+    fitted = best(smem)
+    if base * split <= F32_SPLIT_THREADS:
+        half = best(smem // 2 - 1024)
+        if half["stages"] >= 2 and half["resident"] == fitted["resident"]:
+            fitted = half
+    if fitted["stages"] < 2:
+        raise ValueError(f"the float32 layer {cin} -> {cout} does not fit {smem} bytes")
+    return {"config": cfg, "tile_h": th, "tile_w": F32_TW, "n_tile": nt,
+            "threads": base * split, "split": split, "out_channels_a_thread": o, "chunk": ck,
+            "n_tiles": ncot, "tiles": tiles, "chunks": -(-ngroups * gc // ck), **fitted}
+
+
+def f32_input_route(xs: Sequence[torch.Tensor], cin: int, k: int = 3) -> str:
+    """How the float32 dense layer of kernel size ``k`` takes the input parts
+    ``xs`` (NHWC, concatenated on channels) of a layer that reads their
+    first ``cin`` channels.
+
+    One contiguous tensor, or 2-3 contiguous tensors of equal width whose
+    channels together are ``cin``, are read in place: ``"tma"`` (a 4-D TMA
+    box a group of ``F32_GROUP[k]`` channels) where ``cin`` and the parts'
+    width are multiples of 4 (16-byte pixel strides), every part is 16-byte
+    aligned and, for a 1×1 layer on several parts, each part holds whole
+    16-channel groups,
+    ``"async"`` (4-byte ``cp.async``, any width and alignment: the
+    3-channel heads) otherwise. ``"copy"``: parts of unequal widths, more
+    than ``MAX_PARTS`` parts or a non-contiguous part are copied into one
+    contiguous buffer first, which the kernel then reads on its own route.
+    Raises on parts that differ in batch, height or width, or hold too few
+    channels."""
+    if any(t.ndim != 4 for t in xs) or len({tuple(t.shape[:3]) for t in xs}) != 1:
+        raise ValueError(f"conv layer input parts {[tuple(t.shape) for t in xs]} are not "
+                         "NHWC tensors of one size")
+    widths = [t.shape[-1] for t in xs]
+    if sum(widths) < cin or (len(xs) > 1 and sum(widths) != cin):
+        raise ValueError(f"conv layer reads {cin} channels of input parts {widths}")
+    if not all(t.is_contiguous() for t in xs) or len(xs) > MAX_PARTS or len(set(widths)) != 1:
+        return "copy"
+    tma = (cin % 4 == 0 and widths[0] % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in xs)
+           and (k == 3 or len(xs) == 1 or widths[0] % F32_GROUP[1] == 0))
+    return "tma" if tma else "async"
+
+
+def f32_launch_record(x, cin: int, cout: int, k: int, lff: bool = False) -> dict:
+    """What the float32 dense layer (or, ``lff``, the float32 RDB fusion: a
+    1×1 layer over ``x``'s leading ``cin`` channels) launches on the input
+    ``x`` (a CUDA tensor or a list of parts), without launching it: grid,
+    threads, shared memory, registers, spills, tiles, the plan's tile, N
+    tile, chunk, stages and resident weights, and the route."""
+    xs = list(x) if isinstance(x, (list, tuple)) else [x]
+    if not dispatch.use_kernel(*xs):
+        raise ValueError("the launch record is the card's: pass CUDA tensors")
+    route = f32_input_route(xs, cin, k)
+    if route == "copy":
+        xs = [torch.cat(xs, dim=-1).contiguous()]
+    ptrs = [t.data_ptr() for t in xs] + [xs[0].data_ptr()] * (MAX_PARTS - len(xs))
+    b, h, wd, xcs = xs[0].shape
+    rec = (ctypes.c_int * len(F32_LAUNCH_RECORD))()
+    _build.launch("nt_conv2d_f32_launch", xs[0].device, *ptrs, len(xs), xcs, cin, cout, b, h,
+                  wd, k, int(lff), ctypes.addressof(rec))
+    out = dict(zip(F32_LAUNCH_RECORD, rec))
+    out["route"] = F32_ROUTES[out["route"]]
+    return out
+
+
 def conv_layer_launch(x, cin: int, w: torch.Tensor, bias: torch.Tensor,
                       out: torch.Tensor, out_coff: int, relu: bool) -> None:
     """Launch ``nt_conv2d``: channels [0, cin) of the input → channels
@@ -221,9 +382,8 @@ def conv_layer_launch(x, cin: int, w: torch.Tensor, bias: torch.Tensor,
             xs = [padded_input(xs, cin)]
         wk = pack_conv_weights(w)
     elif dt == torch.float32:
-        xs = [torch.cat(xs, dim=-1) if len(xs) > 1 else xs[0].contiguous()]
-        if xs[0].shape[-1] < cin:
-            raise ValueError(f"conv layer reads {cin} channels of {tuple(xs[0].shape)}")
+        if f32_input_route(xs, cin, k) == "copy":
+            xs = [torch.cat(xs, dim=-1).contiguous()]
         wk = w.float().contiguous()
     else:
         raise TypeError(f"the dense conv kernel takes float32 or bfloat16, got {dt}")
@@ -232,6 +392,8 @@ def conv_layer_launch(x, cin: int, w: torch.Tensor, bias: torch.Tensor,
     _build.launch("nt_conv2d", out.device, *ptrs, len(xs), xcs, cin, wk.data_ptr(),
                   bias.data_ptr(), out.data_ptr(), out.shape[-1], out_coff, cout,
                   b, h, wd, k, int(relu), _build.dtype_code(out))
+    if dt == torch.float32:
+        dispatch.launches["conv_f32"] += 1
 
 
 def dwconv3_route(shape: Sequence[int], dtype: torch.dtype, aligned: bool) -> str:

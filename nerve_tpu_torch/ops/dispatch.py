@@ -11,7 +11,11 @@ went through the kernels (see ``chip_smoke.py``). ``rdb_int8_int32_taps``
 counts the int8 RDB blocks that ran the per-channel ``int32_taps`` scheme
 (each also counts under ``rdb_int8``). ``rdb_lff`` and ``rdb_lff_i8`` count
 the RDB fusions' launches (one per block, beside ``rdb`` or ``rdb_int8``;
-``rdb_taps`` blocks also run ``rdb_lff``).
+``rdb_taps`` blocks also run ``rdb_lff``). ``conv_f32`` counts the float32
+dense-layer kernel's launches (every float32 dense layer: a chain's, each
+also under ``conv_chain``, and an RDB's, whose block counts under
+``rdb``), ``rdb_lff_f32`` the float32 fusion's (each also under
+``rdb_lff``).
 
 ``packs`` counts the int8 states (a chain, an RDB stack) packed into the
 int8 layer kernel's weight image: host work, no launch. A model packs each
@@ -36,7 +40,8 @@ import torch
 RECOMPUTE_RANGE = "nt.recompute"
 KERNELS = ("d2s_packed", "correlation", "conv_chain", "conv_chain_dw3", "rdb",
            "conv_chain_int8", "rdb_int8", "planar_chain", "rdb_int8_int32_taps",
-           "rdb_taps", "d2s_packed_planar", "probe", "quantize_i8", "rdb_lff", "rdb_lff_i8")
+           "rdb_taps", "d2s_packed_planar", "probe", "quantize_i8", "rdb_lff", "rdb_lff_i8",
+           "conv_f32", "rdb_lff_f32")
 launches = dict.fromkeys(KERNELS, 0)
 packs = {"int8": 0}
 

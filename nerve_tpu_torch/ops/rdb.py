@@ -11,7 +11,10 @@ Numerics are those of ``_rdb_xla``: each dense layer's sum is rounded to the
 input dtype, plus float32 bias, relu, rounded again; the fusion runs in
 float32 and rounds once.
 
-A CUDA tensor runs the hand-written kernels. A stack call keeps two
+A CUDA tensor runs the hand-written kernels (in float32 the dense layers
+and the fusion are one implicit-GEMM family of FP32 FMAs,
+``csrc/conv_f32.cuh``; counters ``conv_f32`` and ``rdb_lff_f32``). A stack
+call keeps two
 (B, H, W, ceil8(C + L·G)) concatenation buffers (``stack_plan``): the
 stack's input is copied into channels [0, C) of the first, once; in each
 block the dense layers run ``nt_conv2d`` (``csrc/conv_chain.cu``) writing
@@ -152,6 +155,8 @@ def lff_launch(cat: torch.Tensor, lw: torch.Tensor, lb: torch.Tensor,
                   lbf.data_ptr(), out.data_ptr(), out.shape[-1], out_coff, c, b, h, w,
                   RES_SCALE, _build.dtype_code(cat))
     dispatch.launches["rdb_lff"] += 1
+    if cat.dtype == torch.float32:
+        dispatch.launches["rdb_lff_f32"] += 1
     return out
 
 

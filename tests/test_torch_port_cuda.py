@@ -37,7 +37,13 @@ depthwise layer runs wider than 64 channels (channel slices) on both
 routes, and at 64 channels or fewer launches what it did before slices.
 The planar chain keeps a non-finite input value where the plain version
 does: the same values are NaN, +Inf and -Inf, the finite ones at the chain's
-level, also behind padded channels where a relu turns an -Inf into 0.
+level, also behind padded channels where a relu turns an -Inf into 0, and
+also where a finite input overflows bfloat16 inside the chain. The float32
+dense layer and fusion (``csrc/conv_f32.cuh``) at the float32 level over
+every input and output width of the paths, both kernel sizes, ragged
+frames, batch 1 and 12, many tiles a block, both staging routes, channel
+slots, list inputs of 2 and 3 parts; their launch records against the host
+plan ``f32_plan``.
 Training: each kernel op under autograd (the conv chain on a list of three
 frames, the RDB stack, the correlation, the warp) against plain autograd
 through its plain version, output and gradients at the levels above (the
@@ -507,6 +513,31 @@ def test_planar_chain_non_finite(cuda, dtype, chain):
     _check("conv_chain", torch.where(bad, 0, got), torch.where(bad, 0, ref), dtype)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 20], ids=["lightweight", "ragged_widths"])
+def test_planar_chain_overflow(cuda, c):
+    """A finite input whose second layer's sums overflow bfloat16 at a few
+    pixels (``diag.planar.overflow_case``: every weight positive, so the
+    reference carries +Inf and no NaN), in the lightweight body's shape and
+    at width 20 (padded channels): the kernel's NaN, +Inf and -Inf are where
+    the plain version's are, and its finite values at the chain's level. A
+    stage after the overflow that ran unchecked would spread NaN through
+    its depthwise layer's diagonal blocks (0 * Inf)."""
+    from nerve_tpu_torch.diag import planar as diag_planar
+
+    x, params = diag_planar.overflow_case(c, cuda)
+    assert bool(torch.isfinite(x).all())
+    got = ops.planar_chain_apply(x, params)
+    ref = planar_chain.planar_chain_plain(
+        x.cpu(), [(w.cpu(), b.cpu(), a) for w, b, a in params]).to(cuda)
+    bad = ~torch.isfinite(ref)
+    assert 0 < int(bad.sum()) < bad.numel() // 4 and not torch.isnan(ref).any()
+    for kind in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(kind(got), kind(ref)), (kind.__name__,
+                                                   int((kind(got) != kind(ref)).sum()))
+    _check("conv_chain", torch.where(bad, 0, got), torch.where(bad, 0, ref), torch.bfloat16)
+
+
 # name -> (layer widths, kinds: 3 / 1 dense, "dw" depthwise), each with a
 # ragged frame: the folded head alone; a 1x1 first layer (the input box
 # transposed) and a depthwise layer alone; 48- and 64-channel (depthwise,
@@ -565,6 +596,177 @@ def test_planar_chain_too_large_raises(cuda, dtype):
     with pytest.raises(RuntimeError, match="nt_planar_chain"):
         ops.planar_chain_apply(x, params)
     assert dispatch.launches["planar_chain"] == n0
+
+
+# The float32 dense layer and fusion (``csrc/conv_f32.cuh``): every input
+# and output width of the paths, both kernel sizes, relu on and off.
+F32_CIN = (3, 12, 32, 64, 96, 160, 192)
+F32_COUT = (2, 3, 12, 32, 64)
+
+
+def _f32_layer(g, cin, cout, k, dev):
+    w = _rand(g, k, k, cin, cout, std=(k * k * cin) ** -0.5).to(dev)
+    return w, _rand(g, cout, std=0.1).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("cout", F32_COUT)
+@pytest.mark.parametrize("cin", F32_CIN)
+def test_conv_f32_widths(cuda, cin, cout, k):
+    """One float32 layer on a ragged 2 x 37 x 53 frame against its plain
+    version at the float32 level (TF32 off), relu on for odd cin + cout:
+    one ``conv_f32`` launch, on the route its shape gives."""
+    g = torch.Generator().manual_seed(cin * 100 + cout * 10 + k)
+    x = _rand(g, 2, 37, 53, cin).to(cuda)
+    w, b = _f32_layer(g, cin, cout, k, cuda)
+    layer = [(w, b, "relu" if (cin + cout) % 2 else "none")]
+    n0 = dispatch.launches["conv_f32"]
+    got = ops.conv_chain_apply(x, layer)
+    assert dispatch.launches["conv_f32"] == n0 + 1
+    assert conv_chain.f32_launch_record(x, cin, cout, k)["route"] == (
+        "tma" if cin % 4 == 0 else "async")
+    _check("conv_chain", got, conv_chain.conv_chain_plain(x, layer), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(12, 97, 261), (1, 97, 261), (12, 37, 53)])
+@pytest.mark.parametrize("route", ["tma", "async"])
+def test_conv_f32_many_tiles(cuda, shape, route):
+    """64 -> 64 3x3 at batch 12 and 1 over many tiles for every persistent
+    block (the ring turns over across tiles), on both staging routes: the
+    cp.async route by an input one float into its storage."""
+    g = torch.Generator().manual_seed(31)
+    off = 0 if route == "tma" else 1
+    n = math.prod(shape) * 64
+    x = _rand(g, n + off).to(cuda)[off:].view(*shape, 64)
+    w, b = _f32_layer(g, 64, 64, 3, cuda)
+    rec = conv_chain.f32_launch_record(x, 64, 64, 3)
+    assert rec["route"] == route and rec["tiles"] >= rec["grid"]
+    if shape[0] == 12 and shape[1] == 97:
+        assert rec["tiles"] > 4 * rec["grid"]
+    layer = [(w, b, "relu")]
+    _check("conv_chain", ops.conv_chain_apply(x, layer), conv_chain.conv_chain_plain(x, layer),
+           torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ocoff", [3, 8])
+@pytest.mark.parametrize("k", [1, 3])
+def test_conv_f32_slot(cuda, k, ocoff):
+    """A 32-channel slot of a 77-channel output (16-byte stores at offset 8,
+    element stores at 3), every other channel untouched."""
+    g = torch.Generator().manual_seed(32)
+    x = _rand(g, 2, 37, 53, 64).to(cuda)
+    w, b = _f32_layer(g, 64, 32, k, cuda)
+    out = _rand(g, 2, 37, 53, 77).to(cuda)
+    before = out.clone()
+    conv_chain.conv_layer_launch(x, 64, w, b, out, ocoff, relu=True)
+    ref = conv_chain.conv_chain_plain(x, [(w, b, "relu")])
+    _check("conv_chain", out[..., ocoff:ocoff + 32], ref, torch.float32)
+    assert torch.equal(out[..., :ocoff], before[..., :ocoff])
+    assert torch.equal(out[..., ocoff + 32:], before[..., ocoff + 32:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 1])
+@pytest.mark.parametrize("parts", [(32, 32), (64, 64, 64), (3, 3), (12, 12, 12), (4, 8)])
+def test_conv_f32_list_parts(cuda, parts, k):
+    """A list input of 2 and 3 parts read in place (TMA: widths a multiple
+    of 4, of 16 for a 1x1 layer's 16-channel boxes; cp.async otherwise),
+    parts of unequal widths copied first (``f32_input_route`` says "copy"),
+    against the plain version."""
+    g = torch.Generator().manual_seed(33)
+    xs = [_rand(g, 2, 37, 53, c).to(cuda) for c in parts]
+    cin = sum(parts)
+    w, b = _f32_layer(g, cin, 32, k, cuda)
+    route = conv_chain.f32_input_route(xs, cin, k)
+    boxes = parts[0] % (4 if k == 3 else 16) == 0
+    assert route == ("copy" if len(set(parts)) > 1 else "tma" if boxes else "async")
+    assert conv_chain.f32_launch_record(xs, cin, 32, k)["route"] == (
+        "tma" if route == "tma" or (route == "copy" and cin % 4 == 0) else "async")
+    layer = [(w, b, "relu")]
+    n0 = dispatch.launches["conv_f32"]
+    got = ops.conv_chain_apply(xs, layer)
+    assert dispatch.launches["conv_f32"] == n0 + 1
+    _check("conv_chain", got, conv_chain.conv_chain_plain(xs, layer), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("ccat", [96, 224])
+def test_rdb_lff_f32(cuda, ccat, c):
+    """The float32 fusion alone over many tiles per block (2 x 131 x 517):
+    the leading ccat channels of a wider buffer in, an offset slot of a
+    wider output out, against ``lff_plain`` at the float32 level; one
+    ``rdb_lff_f32`` launch; every other output channel untouched."""
+    g = torch.Generator().manual_seed(34)
+    cat = _rand(g, 2, 131, 517, ccat + 8).to(cuda)
+    lw = _rand(g, ccat, c, std=ccat ** -0.5).to(cuda)
+    lb = _rand(g, c, std=0.1).to(cuda)
+    out = _rand(g, 2, 131, 517, c + 24).to(cuda)
+    before = out.clone()
+    n0 = dispatch.launches["rdb_lff_f32"]
+    rdb.lff_launch(cat, lw, lb, out, 8)
+    assert dispatch.launches["rdb_lff_f32"] == n0 + 1
+    _check("rdb", out[..., 8:8 + c], rdb.lff_plain(cat, lw, lb), torch.float32)
+    assert torch.equal(out[..., :8], before[..., :8])
+    assert torch.equal(out[..., 8 + c:], before[..., 8 + c:])
+
+
+@pytest.mark.cuda
+def test_conv_f32_one_kernel_per_layer(cuda, tmp_path):
+    """A float32 chain (3 -> 64 -> 64 -> 12 -> 2) is one kernel launch a
+    layer and no other kernel (no ATen op on the weights or inputs); a
+    float32 RDB block one a dense layer and one for its fusion; each launch record
+    is the host plan ``f32_plan`` at the card's shared memory, with no
+    spills and at most 255 registers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator().manual_seed(35)
+    x = _rand(g, 2, 64, 96, 3).to(cuda)
+    params = _conv_params(g, [3, 64, 64, 12, 2], [3, 3, 1, 3], cuda)
+    plist = [_rdb_params(g, 64, cuda)]
+    xr = _rand(g, 1, 40, 72, 64).to(cuda)
+    ops.conv_chain_apply(x, params)
+    torch.cuda.synchronize()
+    n0 = dict(dispatch.launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.conv_chain_apply(x, params)
+        torch.cuda.synchronize()
+    assert dispatch.launches["conv_f32"] == n0["conv_f32"] + 4
+    trace = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    kernels = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert len(kernels) == 4 and all("conv_f32_kernel" in k for k in kernels), kernels
+    ops.rdb_chain_apply(xr, plist)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.rdb_chain_apply(xr, plist)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    kernels = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert sum("conv_f32_kernel" in k for k in kernels) == 5, kernels
+    assert sum("lff_f32_kernel" in k for k in kernels) == 1, kernels
+    props = torch.cuda.get_device_properties(cuda)
+    smem, sms = props.shared_memory_per_block_optin, props.multi_processor_count
+    big = _rand(g, 2, 270, 480, 232).to(cuda)
+    for xin, cin, cout, k, lff in [(x, 3, 64, 3, False), (xr, 64, 64, 3, False),
+                                   (xr, 64, 12, 3, False), (xr, 64, 2, 1, False),
+                                   (big, 64, 64, 3, False), (big, 192, 32, 3, False),
+                                   (big, 224, 64, 1, True), (xr, 64, 64, 1, True)]:
+        rec = conv_chain.f32_launch_record(xin, cin, cout, k, lff=lff)
+        plan = conv_chain.f32_plan(cin, cout, k, *xin.shape[:3], smem=smem, sms=sms)
+        assert rec["tiles"] == plan["tiles"], (rec, plan)
+        assert rec["spill_bytes"] == 0 and 0 < rec["registers"] <= 255, rec
+        assert rec["dynamic_smem_bytes"] == plan["smem_bytes"], (rec, plan)
+        for key in ("tile_h", "tile_w", "n_tile", "threads", "chunk", "stages", "split"):
+            assert rec[key] == plan[key], (key, rec, plan)
+        assert bool(rec["resident"]) == plan["resident"], (rec, plan)
+        assert bool(rec["staged_store"]) == plan["staged_store"], (rec, plan)
+        print(f"conv_f32 {cin} -> {cout} {k}x{k}{' lff' if lff else ''}: {json.dumps(rec)}")
 
 
 @pytest.mark.cuda
@@ -1122,8 +1324,8 @@ def test_double_backward(cuda, name, dtype, dims):
 
 # The lightweight model's local steps of the federated path: launches per
 # step (forward only; the backward recomputes the plain versions).
-FED_STEP_LAUNCHES = {"train": {"conv_chain": 2}, "frozen_stats": {"conv_chain": 6,
-                                                                   "conv_chain_dw3": 4}}
+FED_STEP_LAUNCHES = {"train": {"conv_chain": 2, "conv_f32": 2},
+                     "frozen_stats": {"conv_chain": 6, "conv_f32": 6, "conv_chain_dw3": 4}}
 
 
 @pytest.mark.cuda

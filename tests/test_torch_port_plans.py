@@ -14,6 +14,9 @@ the CPU.
 * The planar d2s's row segments (``ops.pixel_shuffle.planar_segments``):
   whole 16-byte runs (bulk copies start aligned), about 16 KB a stage, a
   plane row padded by 16 bytes.
+* The float32 dense layer's plan (``ops.conv_chain.f32_plan``, the table
+  and constants of ``csrc/conv_f32.cuh``) and its input route by shape
+  (``f32_input_route``).
 
 The kernels themselves run in ``tests/test_torch_port_cuda.py``, which also
 holds their launch records to these plans.
@@ -58,6 +61,13 @@ def _c_array(src: str, name: str):
     """The integers of the C array ``name``'s initialiser, nested as written."""
     body = re.search(rf"{name}\[[^=]*=\s*(\{{.*?\}});", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
+    return eval(body.replace("{", "[").replace("}", "]"))
+
+
+def _c_macro(src: str, name: str):
+    """The integers of the brace initialiser that ``#define name`` stands for."""
+    body = re.search(rf"#define {name}\s+((?:[^\n]*\\\n)*[^\n]*)", src).group(1)
+    body = body.replace("\\\n", " ")
     return eval(body.replace("{", "[").replace("}", "]"))
 
 
@@ -125,3 +135,137 @@ def test_planar_d2s_segments(dtype, w, c, s):
     assert words % 32 != 0
     if (w, c, s) == (1920, 3, 2):
         assert plan["stage_bytes"] <= ps.SEG_BYTES + 12 * 16 + 128
+
+
+def test_f32_plan_constants_are_the_kernel_source():
+    src = (CSRC / "conv_f32.cuh").read_text()
+    one, three = _c_macro(src, "NT_F32_CFG")
+    assert [tuple(r) for r in one] == list(conv_chain.F32_CFG[1])
+    assert [tuple(r) for r in three] == list(conv_chain.F32_CFG[3])
+    assert _c_macro(src, "NT_F32_CHUNK") == [conv_chain.F32_CHUNK[1], conv_chain.F32_CHUNK[3]]
+    decls = " ".join(re.findall(r"^constexpr int (F32_[^;\[]*);", src, re.M))
+    scalars = dict(re.findall(r"\b(F32_[A-Z_]+) = (\d+)", decls))
+    assert {k: int(v) for k, v in scalars.items()} == {
+        "F32_P": conv_chain.F32_P, "F32_TW": conv_chain.F32_TW,
+        "F32_MAX_STAGES": conv_chain.F32_MAX_STAGES,
+        "F32_MIN_RESIDENT_STAGES": conv_chain.F32_MIN_RESIDENT_STAGES,
+        "F32_BAR_BYTES": conv_chain.F32_BAR_BYTES, "F32_SPLIT": conv_chain.F32_SPLIT,
+        "F32_SPLIT_THREADS": conv_chain.F32_SPLIT_THREADS}
+    # Every configuration's warps cover its N tile with 16-byte weight reads.
+    for maxc, o, wn, wm in conv_chain.F32_CFG[1] + conv_chain.F32_CFG[3]:
+        assert o % 4 == 0 and o * wn >= maxc and 32 * wn * wm <= 1024
+
+
+# (cin, cout, k) -> (tile_h, n_tile, resident, stages) at 1 x 1080 x 1920:
+# the serving and training sites (heads, the 64-wide layers, the RDB's
+# layers and its fusion, the lightweight tail, the flow head's 2- and
+# 128-channel layers, a 384-channel layer).
+F32_PLANS = {
+    (3, 64, 3): (8, 64, True, 4), (3, 32, 3): (8, 32, True, 4),
+    (64, 64, 3): (8, 64, True, 4), (32, 12, 3): (16, 16, True, 3),
+    (96, 32, 3): (8, 32, True, 4), (128, 32, 3): (8, 32, True, 4),
+    (160, 32, 3): (8, 32, True, 4), (192, 32, 3): (8, 32, False, 3),
+    (224, 64, 1): (16, 64, True, 4), (32, 2, 3): (32, 4, True, 4),
+    (81, 128, 3): (8, 64, False, 4), (384, 64, 3): (8, 64, False, 4),
+}
+
+
+@pytest.mark.parametrize("cin,cout,k", list(F32_PLANS))
+def test_f32_plan(cin, cout, k):
+    tile_h, nt, resident, stages = F32_PLANS[cin, cout, k]
+    plan = conv_chain.f32_plan(cin, cout, k)
+    assert (plan["tile_h"], plan["n_tile"], plan["resident"], plan["stages"]) == (
+        tile_h, nt, resident, stages), plan
+    assert plan["tile_w"] == 32 and plan["n_tiles"] == -(-cout // nt)
+    assert plan["split"] == 1
+    assert plan["threads"] == 32 * (nt // plan["out_channels_a_thread"]) * (tile_h // 8)
+    assert plan["chunks"] * plan["chunk"] >= cin > (plan["chunks"] - 1) * plan["chunk"]
+    assert plan["smem_bytes"] <= conv_chain.H100_SMEM and plan["smem_bytes"] % 128 == 0
+    # The output staged for TMA stores where one unit's area fits beside
+    # what the layer keeps without it: not where the weights would then
+    # stream (the RDB's 160-channel layer).
+    assert plan["staged_store"] == ((cin, cout, k) != (160, 32, 3))
+    # Resident weights only where they leave room for three stages.
+    r128 = lambda n: -(-n // 128) * 128  # noqa: E731
+    gc = conv_chain.F32_GROUP[k]
+    wbytes = -(-(-(-cin // gc) * gc * k * k * nt * 4) // 1024) * 1024
+    in_bytes = plan["chunk"] // gc * r128((tile_h + k - 1) * (32 + k - 1) * gc * 4)
+    assert plan["resident"] == (plan["n_tiles"] == 1 and wbytes + 3 * in_bytes
+                                <= conv_chain.H100_SMEM - conv_chain.F32_BAR_BYTES)
+    # A smaller device keeps to its shared memory and keeps weights resident
+    # only where the larger one does.
+    small = conv_chain.f32_plan(cin, cout, k, smem=120 * 1024)
+    assert small["smem_bytes"] <= 120 * 1024
+    assert plan["resident"] or not small["resident"]
+
+
+# The meta step's small grids take a narrower N tile while that gives more
+# tiles, then split each K chunk over two warp sets in blocks of 128
+# threads: (cin, cout, k, b, h, w) -> (tile_h, n_tile, tiles, split).
+F32_SMALL_GRIDS = {
+    (64, 64, 3, 4, 64, 64): (8, 32, 128, 2), (3, 64, 3, 12, 64, 64): (8, 32, 384, 1),
+    (224, 64, 1, 4, 64, 64): (8, 32, 128, 2), (160, 32, 3, 4, 64, 64): (8, 32, 64, 2),
+    (3, 32, 3, 1, 64, 64): (8, 32, 16, 1), (64, 64, 3, 1, 1080, 1920): (8, 64, 8100, 1),
+}
+
+
+@pytest.mark.parametrize("shape", list(F32_SMALL_GRIDS))
+def test_f32_plan_small_grids(shape):
+    cin, cout, k, b, h, w = shape
+    plan = conv_chain.f32_plan(cin, cout, k, b, h, w)
+    assert (plan["tile_h"], plan["n_tile"], plan["tiles"], plan["split"]) == F32_SMALL_GRIDS[
+        shape], plan
+    assert plan["threads"] == 32 * plan["n_tile"] // plan["out_channels_a_thread"] * (
+        plan["tile_h"] // 8) * plan["split"]
+    base = next(i for i, c in enumerate(conv_chain.F32_CFG[k]) if cout <= c[0])
+    assert plan["config"] == base or plan["tiles"] > conv_chain.f32_tiles(k, base, cout, b, h, w)
+
+
+def test_f32_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="does not fit"):
+        conv_chain.f32_plan(64, 64, 3, smem=30 * 1024)
+    for bad in ((0, 64, 3), (64, 0, 3), (64, 64, 5)):
+        with pytest.raises(ValueError, match="no float32 plan"):
+            conv_chain.f32_plan(*bad)
+
+
+def _nhwc(*cs, offset=0):
+    out = []
+    for c in cs:
+        base = torch.zeros(2 * 5 * 7 * c + offset)
+        out.append(base[offset:].view(2, 5, 7, c))
+    return out
+
+
+# parts, cin -> route
+F32_ROUTES = {
+    "one_64": (_nhwc(64), 64, "tma"),
+    "leading_cin": (_nhwc(224), 192, "tma"),
+    "head_3": (_nhwc(3), 3, "async"),
+    "flow_81": (_nhwc(81), 81, "async"),
+    "misaligned": (_nhwc(64, offset=1), 64, "async"),
+    "three_parts": (_nhwc(64, 64, 64), 192, "tma"),
+    "two_parts_of_3": (_nhwc(3, 3), 6, "async"),
+    "unequal_parts": (_nhwc(4, 8), 12, "copy"),
+    "four_parts": (_nhwc(4, 4, 4, 4), 16, "copy"),
+    "not_contiguous": ([torch.zeros(2, 7, 5, 8).transpose(1, 2)], 8, "copy"),
+    # A 1x1 layer stages 16-channel boxes: parts of 4 or 8 channels take cp.async.
+    "1x1_parts_of_8": (_nhwc(8, 8), 16, "async", 1),
+    "1x1_parts_of_16": (_nhwc(16, 16, 16), 48, "tma", 1),
+    "1x1_one_12": (_nhwc(12), 12, "tma", 1),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_ROUTES))
+def test_f32_input_route(case):
+    xs, cin, route, *k = F32_ROUTES[case]
+    assert conv_chain.f32_input_route(xs, cin, *k) == route
+
+
+def test_f32_input_route_refuses():
+    with pytest.raises(ValueError, match="reads 65 channels"):
+        conv_chain.f32_input_route(_nhwc(64), 65)
+    with pytest.raises(ValueError, match="reads 12 channels"):
+        conv_chain.f32_input_route(_nhwc(8, 8), 12)
+    with pytest.raises(ValueError, match="NHWC tensors of one size"):
+        conv_chain.f32_input_route([torch.zeros(2, 5, 7, 4), torch.zeros(2, 5, 6, 4)], 8)
