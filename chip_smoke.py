@@ -258,6 +258,29 @@ Phases, each of which raises on failure and prints its wall time:
    family's launch records. The ``{"kernels"}`` line's ``conv_f32`` and
    ``rdb_lff_f32`` entries take their launches from phase 10's meta step and
    their times from the 64 -> 64 row at 1080p and the fusion's 1080p row.
+13. ABR and MLOps (``nerve_tpu_torch.abr``, ``train_abr``,
+   ``nerve_tpu_torch.mlops``; ``diag.abr``; float32, TF32 off; plain
+   PyTorch, as the JAX package's ABR and MLOps code reaches no Pallas
+   kernel). (a) ``TorchStreamingEnv`` over 4096 streams for 128 steps with
+   auto-resets, the draws and actions made once on the CPU and fed to the
+   card and to the CPU: observations, rewards and the final state within
+   ``diag.abr.ENV_LIMIT`` of max|CPU|, ``done`` equal; ms per step. (b) One
+   PPO update at ``ABRConfig()`` defaults (256 x 256, 2048 transitions of a
+   CPU rollout of 16 streams flattened t-major, 10 epochs) on the card and
+   on the CPU from the same parameters: each parameter's change, Adam's
+   moments and count and the four metrics at ``diag.abr``'s limits; ms per
+   update (median of 5 after 1). (c) ``python -m nerve_tpu_torch.train_abr
+   --vectorized`` (16 streams x 128 steps an iteration, 4 iterations) as a
+   subprocess: finite losses, the checkpoint's parameters moved from the
+   seed's, ms per iteration split into rollout and update; then ``--mode
+   eval`` on its checkpoint (``train_abr.main``): finite ``mean_return``,
+   ``mean_vmaf``, ``mean_rebuffer``. (d) The sequential loop for 256 steps
+   (``StreamingEnv`` in numpy, one ``select_action`` a step): an update at
+   an episode's end with a finite loss; ms per ``select_action`` and per
+   update. (e) ``DriftDetector("mmd")`` on
+   1000 x 64 reference and window samples, unshifted and shifted by 1, on
+   the card and on the CPU: scores within ``diag.abr.DRIFT_REL``, decisions
+   equal (no drift, drift); ms per ``detect``.
 
 ``--profile DIR`` profiles two steps of each slice, and two bf16 engine
 calls in "full" and in "recovery_only" mode (``diag.conv.profile``:
@@ -279,6 +302,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import importlib
+import io
 import json
 import math
 import re
@@ -346,7 +370,9 @@ from nerve_tpu_torch.models import (
     streaming_step,
     streaming_step_pair,
 )
-from nerve_tpu_torch import enhance, training
+from nerve_tpu_torch import enhance, train_abr, training
+from nerve_tpu_torch.abr import ABRConfig, PPOAgent
+from nerve_tpu_torch.diag import abr as diag_abr
 from nerve_tpu_torch.config.schema import TrainingConfig
 from nerve_tpu_torch.utils import data as data_lib
 from nerve_tpu_torch.utils.checkpoint import CheckpointManager
@@ -2418,6 +2444,83 @@ def run_recovery_phase(dev, card: str) -> None:
 
 
 
+# --------------------------------------------------------------------------- #
+# ABR and MLOps (phase 13): the streaming simulator, the PPO update, the
+# training CLI and the drift detector, card against CPU
+# --------------------------------------------------------------------------- #
+ABR_ITERS = 4
+
+
+def abr_train_cli(dev, card: str, tmp: Path) -> None:
+    """13c: the vectorised training CLI at its defaults for 4 iterations,
+    then ``--mode eval`` on its checkpoint."""
+    ck = tmp / "abr.npz"
+    steps = ABR_ITERS * ABRConfig().buffer_capacity
+    t0 = time.perf_counter()
+    out = _last_json(_run(["nerve_tpu_torch.train_abr", "--vectorized", "--num-steps", steps,
+                           "--checkpoint", ck]), "train_abr --vectorized")
+    wall = time.perf_counter() - t0
+    fresh, trained = PPOAgent(seed=42, device=dev), PPOAgent(seed=42, device=dev)
+    trained.load(str(ck))
+    moved = [n for (n, a), b in zip(fresh.network.named_parameters(),
+                                    trained.network.parameters()) if not torch.equal(a, b)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        ev = train_abr.main(["--mode", "eval", "--checkpoint", str(ck)])
+    print(f"train_abr --vectorized (16 streams x 128 steps, {out['iters']} iterations): losses "
+          f"{out['losses']}; mean step reward {out['mean_step_reward']:.4f}; rollout ms "
+          f"{[round(v, 2) for v in out['rollout_ms']]}, update ms "
+          f"{[round(v, 2) for v in out['update_ms']]} (host clock to a synchronise; after the "
+          f"first: rollout {statistics.median(out['rollout_ms'][1:]):.2f} ms, update "
+          f"{statistics.median(out['update_ms'][1:]):.2f} ms, iteration "
+          f"{statistics.median([a + b for a, b in zip(out['rollout_ms'][1:], out['update_ms'][1:])]):.2f}"
+          f" ms, median); {len(moved)} of 10 parameters moved; wall {wall:.1f} s; eval {ev} on "
+          f"{card}", flush=True)
+    if (out["iters"] != ABR_ITERS or not all(math.isfinite(v) for v in out["losses"])
+            or len(moved) != 10 or not all(math.isfinite(ev[k]) for k in
+                                           ("mean_return", "mean_vmaf", "mean_rebuffer"))):
+        raise AssertionError(f"train_abr: {out}, moved {moved}, eval {ev}")
+
+
+def run_abr_phase(dev, card: str) -> None:
+    """Phase 13."""
+    r = diag_abr.env_against_cpu(dev)
+    print(f"ABR env {r['n']} streams x {r['steps']} steps ({r['ends']} stream ends) card vs "
+          f"CPU: max|d| of max|CPU| {r['max_rel'][r['worst']]:.3e} at {r['worst']} (limit "
+          f"{diag_abr.ENV_LIMIT}), done equal {r['done_equal']}; {r['ms_per_step']:.3f} ms/step "
+          f"(CUDA events over the run, median of 3 after 1) on {card}", flush=True)
+    if not diag_abr.env_ok(r):
+        raise AssertionError(f"the batched env on the card differs from the CPU's: {r}")
+    u = diag_abr.update_against_cpu(dev)
+    print(f"PPO update ({u['transitions']} transitions, hidden {u['hidden']}, {u['epochs']} "
+          f"epochs) card vs CPU: worst parameter change rel L2 {u['worst_change']:.3e} (limit "
+          f"{diag_abr.UPDATE_CHANGE_L2}), moments {u['worst_moment']:.3e} (limit "
+          f"{diag_abr.MOMENT_L2}), metrics {u['worst_metric']:.3e} (limit "
+          f"{diag_abr.METRIC_REL}), count {u['count']}; metrics {u['metrics']}; "
+          f"{u['ms_per_update']:.2f} ms/update (median of 5 after 1) on {card}", flush=True)
+    if not diag_abr.update_ok(u):
+        raise AssertionError(f"the PPO update on the card differs from the CPU's: {u}")
+    with tempfile.TemporaryDirectory() as tmp:
+        abr_train_cli(dev, card, Path(tmp))
+    q = diag_abr.sequential_timing(dev, 256)
+    print(f"sequential ABR loop {q['steps']} steps ({q['episodes']} episodes): "
+          f"{q['ms_per_select_action']:.3f} ms per select_action (median; mean "
+          f"{q['ms_select_action_mean']:.3f}, max {q['ms_select_action_max']:.3f}; host clock, "
+          f"one device-to-host copy each), {len(q['losses'])} updates "
+          f"{[round(v, 2) for v in q['ms_per_update']]} ms, losses {q['losses']} on {card}",
+          flush=True)
+    if not q["losses"] or not all(math.isfinite(v) for v in q["losses"]):
+        raise AssertionError(f"the sequential loop: {q}")
+    d = diag_abr.drift_against_cpu(dev)
+    for k in ("none", "strong"):
+        print(f"DriftDetector mmd {d['n']} x {d['d']} shift {k}: score {d[k]['score']!r} vs CPU "
+              f"{d[k]['score_cpu']!r}, |d| {d[k]['abs_diff']:.3e} (limit {diag_abr.DRIFT_REL} of "
+              f"max(score, 0.05)), drift {d[k]['drift']} vs CPU {d[k]['drift_cpu']}", flush=True)
+    print(f"DriftDetector mmd detect: {d['ms_per_detect']:.2f} ms (median of 5 after 1) on {card}",
+          flush=True)
+    if not diag_abr.drift_ok(d):
+        raise AssertionError(f"the MMD on the card differs from the CPU's: {d}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -2490,6 +2593,8 @@ def main() -> int:
                          "library_ms": r.get("cudnn_ms", r.get("library_ms"))}
     with phase("recovery and checkpoints"):
         run_recovery_phase(dev, card)
+    with phase("abr and mlops"):
+        run_abr_phase(dev, card)
     if args.profile:
         with phase("profile"):
             diag_recovery.profile_step(dev, Path(args.profile))

@@ -1,6 +1,7 @@
 """Models of nerve_tpu_torch (the serving models of ``nerve_tpu.models``)."""
 
 from nerve_tpu_torch.models.bridge import (  # noqa: F401
+    abr_from_flax,
     adaptive_engine_from_flax,
     engine_from_flax,
     flax_variables,

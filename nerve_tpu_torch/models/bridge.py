@@ -19,6 +19,10 @@ lightweight model): its parameters and BatchNorm statistics as a
 flax-shaped ``{"params", "batch_stats"}`` tree of numpy arrays (how the tests hold a trained port against the JAX package by
 flax path). ``params_to_flax`` does the same for a dict of tensors by
 parameter name, as the continual-learning rules keep them.
+
+``abr_from_flax`` loads the ABR agent's ``ActorCritic``, whose layers are
+``nn.Linear``: each flax Dense ``kernel`` (in, out) is its ``weight``
+transposed, (out, in).
 """
 
 from __future__ import annotations
@@ -158,3 +162,23 @@ def adaptive_engine_from_flax(variables_numpy: Mapping[str, Any],
     ``device="cpu"``."""
     model = AdaptiveEnhancementEngine(config, device=device, **kwargs)
     return load_flax_variables(model, variables_numpy).eval()
+
+
+def abr_from_flax(variables_numpy: Mapping[str, Any], device="cuda"):
+    """The ABR ``ActorCritic`` holding the flax ``{"params": {"trunk0": {"kernel",
+    "bias"}, …, "policy0", …, "value"}}`` tree, strictly, on the card unless
+    ``device="cpu"``; the widths are read from the kernels' shapes."""
+    from nerve_tpu_torch.abr.agent import ActorCritic  # abr imports models
+
+    params = variables_numpy["params"]
+
+    def widths(prefix):
+        n = sum(1 for k in params if k.startswith(prefix) and k[len(prefix):].isdigit())
+        return [np.shape(params[f"{prefix}{i}"]["kernel"])[1] for i in range(n)]
+
+    model = ActorCritic(widths("policy"), widths("trunk"),
+                        np.shape(params["trunk0"]["kernel"])[0], device=device)
+    linear = {name: {"weight": np.array(p["kernel"], np.float32).T,
+                     "bias": np.array(p["bias"], np.float32)}
+              for name, p in params.items()}
+    return load_flax_variables(model, {**variables_numpy, "params": linear})

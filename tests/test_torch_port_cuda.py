@@ -61,7 +61,9 @@ The int8 configuration in training mode: its chain sites in float, its RDB
 stack in int8 without a gradient. BatchNorm gradients of the flagship's
 and the lightweight model's train steps against float64: the kernel
 route's error within 2x of the plain route's. The recovery net's train
-step on the card against the CPU.
+step on the card against the CPU. ABR and MLOps (plain PyTorch): the
+batched streaming env, a PPO update and the MMD drift score on the card
+against the CPU at ``diag.abr``'s limits.
 """
 
 import importlib
@@ -1400,3 +1402,38 @@ def test_recovery_step_card_vs_cpu(cuda):
     assert r["loss_rel"] <= 1e-5 and r["stats_rel"] <= 1e-5, r
     for k, v in r["grads"].items():
         assert v["rel_l2"] <= 1e-4 or v["card_vs_f64"] <= v["cpu_vs_f64"], (k, v)
+
+
+@pytest.mark.cuda
+def test_abr_env_card_vs_cpu(cuda):
+    """``TorchStreamingEnv`` over 512 streams for 128 steps (auto-resets),
+    the same draws and actions on the card and on the CPU: observations,
+    rewards and state within ``diag.abr.ENV_LIMIT`` of max|CPU|, ``done``
+    equal."""
+    from nerve_tpu_torch.diag import abr as diag_abr
+
+    r = diag_abr.env_against_cpu(cuda, n=512, steps=128)
+    assert r["ends"] > 0 and diag_abr.env_ok(r), r
+
+
+@pytest.mark.cuda
+def test_abr_update_card_vs_cpu(cuda):
+    """One PPO update (hidden 64 x 64, 4 epochs, 512 transitions of a CPU
+    rollout) on the card and on the CPU from the same parameters: changes,
+    moments and metrics at ``diag.abr``'s limits."""
+    from nerve_tpu_torch.abr import ABRConfig
+    from nerve_tpu_torch.diag import abr as diag_abr
+
+    cfg = ABRConfig(hidden_dims=(64, 64), update_epochs=4, buffer_capacity=512)
+    r = diag_abr.update_against_cpu(cuda, cfg, reps=1)
+    assert diag_abr.update_ok(r), r
+
+
+@pytest.mark.cuda
+def test_drift_mmd_card_vs_cpu(cuda):
+    """``DriftDetector("mmd")`` on the card and on the CPU (600 x 16, the
+    same seed): scores within ``diag.abr.DRIFT_REL``, decisions equal, no
+    drift unshifted, drift shifted."""
+    from nerve_tpu_torch.diag import abr as diag_abr
+
+    assert diag_abr.drift_ok(diag_abr.drift_against_cpu(cuda, 600, 16, reps=1))
