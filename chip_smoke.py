@@ -281,6 +281,30 @@ Phases, each of which raises on failure and prints its wall time:
    1000 x 64 reference and window samples, unshifted and shifted by 1, on
    the card and on the CPU: scores within ``diag.abr.DRIFT_REL``, decisions
    equal (no drift, drift); ms per ``detect``.
+14. Multi-device (``nerve_tpu_torch.parallel``; one card). NCCL takes one
+   card a rank, so (a) runs NCCL at world size 1 in this process (a second
+   NCCL rank on the card must be refused first): the bf16 flagship (64/8,
+   window 1, flow ½, seeded) through ``spatial_sr_apply`` at (1, 3, 1080,
+   1920, 3) → (1, 2160, 3840, 3), halo 64 (the halos zero, the CBAM pool's
+   all-reduce real): exactly 10 ``conv_chain``, 8 ``rdb``, 8 ``rdb_lff``,
+   1 ``correlation`` a call, the rows 2·70 or more from each frame edge
+   against the one-card forward at the slice limits. (b) 2 and 4 gloo ranks
+   sharing the card (``parallel.launch.run_cases``, spawned; the boundary
+   rows through host memory): the same flagship check on every rank's
+   launches and the gathered frame, the lightweight model's ``"packed"``
+   output (6 ``conv_chain``, 4 ``conv_chain_dw3``, 1 ``d2s_packed`` a rank;
+   interior rows 2·8 from each edge) and 4 streaming frames through
+   ``spatial_streaming_apply`` (8 ``rdb`` and 1 ``correlation`` a frame a
+   rank), each against its one-card run. (c) The data-parallel flagship
+   train step (phase 9's model and batches, bf16, batch 16 at 64² → 128²)
+   for ``TRAIN_STEPS`` steps at NCCL world 1 and over 2 gloo ranks with 8
+   samples each,
+   against the one-card step on the whole batch at phase 9's limits, each
+   step's launches ``TRAIN_LAUNCHES`` on every rank, the ranks' parameters
+   equal to the bit. (d) With 2 or more cards, (b) and (c) again on NCCL,
+   one rank a card; else one line says why not. ms per sharded frame at 1,
+   2 and 4 ranks and per data-parallel step (ranks sharing one card
+   measure no scaling).
 
 ``--profile DIR`` profiles two steps of each slice, and two bf16 engine
 calls in "full" and in "recovery_only" mode (``diag.conv.profile``:
@@ -377,6 +401,9 @@ from nerve_tpu_torch.config.schema import TrainingConfig
 from nerve_tpu_torch.utils import data as data_lib
 from nerve_tpu_torch.utils.checkpoint import CheckpointManager
 from nerve_tpu_torch.federated.privacy import PrivacyConfig
+from nerve_tpu_torch.models import enhance_video_streaming
+from nerve_tpu_torch.parallel import init_distributed, make_mesh, spatial_sr_apply
+from nerve_tpu_torch.parallel import launch as _launch
 from nerve_tpu_torch.train_federated import client_dataset, stacked_client_data
 from nerve_tpu_torch.ops import (
     _build,
@@ -2521,6 +2548,256 @@ def run_abr_phase(dev, card: str) -> None:
         raise AssertionError(f"the MMD on the card differs from the CPU's: {d}")
 
 
+# --------------------------------------------------------------------------- #
+# Multi-device (phase 14): height-sharded serving and data-parallel training
+# on torch.distributed (nerve_tpu_torch.parallel)
+# --------------------------------------------------------------------------- #
+# One card: NCCL runs one rank a card, so its path runs at world size 1 (the
+# all-reduces real, the halos zero); the halo exchange between ranks runs on
+# gloo ranks that share the card (the kernels on the card, the boundary rows
+# through host memory). Ranks that share one card measure no scaling.
+SPATIAL_HALO, LIGHT_HALO = 64, 8
+SPATIAL_EDGE, LIGHT_EDGE = 2 * 70, 2 * 8  # output rows at each frame edge left out
+SPATIAL_LAUNCHES = {"conv_chain": 10, "rdb": 8, "rdb_lff": 8, "correlation": 1}
+LIGHT_LAUNCHES = {"conv_chain": 6, "conv_chain_dw3": 4, "d2s_packed": 1}
+STREAM_FRAMES, SPATIAL_REPS, DP_STEPS = 4, 3, TRAIN_STEPS
+SERVE_CONFIG = dict(scale_factor=2, num_features=FEATURES, num_residual_blocks=BLOCKS,
+                    temporal_window=1, flow_downsample=2)
+TRAIN_CONFIG = dict(SERVE_CONFIG, flow_downsample=1)
+DP_CFG = dict(epochs=1, warmup_epochs=0)  # diag.train.step_fn's optimiser
+
+
+def _seeded_rand(shape, seed: int) -> torch.Tensor:
+    """``torch.rand`` of a seeded CPU generator: what every rank of
+    ``parallel.launch.run_cases`` draws for ``"rand": {name: [seed, shape]}``."""
+    return torch.rand(shape, generator=torch.Generator().manual_seed(seed))
+
+
+def check_interior(label: str, got, want, edge: int, dim: int) -> None:
+    """``got`` against ``want`` on the rows ``edge`` or more from each edge
+    of the frame (axis ``dim``), at the bf16 slice limits."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)}, want {tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()) or got.min() < 0 or got.max() > 1:
+        raise AssertionError(f"{label}: output not finite or outside [0, 1]")
+    rows = got.shape[dim]
+    d = (got.narrow(dim, edge, rows - 2 * edge) - want.narrow(dim, edge, rows - 2 * edge)).abs()
+    edge_d = (got - want).abs().max().item()
+    print(f"{label}: interior rows [{edge}, {rows - edge}) of {rows} vs one device: max|d| "
+          f"{d.max().item():.3e} (limit {SLICE_MAX_ABS}), mean|d| {d.mean().item():.3e} (limit "
+          f"{SLICE_MEAN_ABS}); max|d| with the edge bands {edge_d:.3e}", flush=True)
+    if d.max().item() > SLICE_MAX_ABS or d.mean().item() > SLICE_MEAN_ABS:
+        raise AssertionError(f"{label}: the sharded output differs from the one-device output")
+
+
+def _launch_rule(label: str, launches, want: dict) -> None:
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def _dp_against_one_device(label: str, losses, params, one, layout) -> None:
+    """A data-parallel run's losses and final parameters against the
+    one-device run's ``one`` (losses, final parameters, initial parameters),
+    at phase 9's limits; ``layout`` is the parameters' (name, size) list."""
+    ref_losses, ref_params, p0 = one
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    change = ref_params - p0
+    d = (params - ref_params).abs()
+    dmax, cmax, dl2, cl2 = d.max().item(), change.abs().max().item(), d.norm().item(), \
+        change.norm().item()
+    at = int(d.argmax())
+    worst, rest = None, at
+    for name, size in layout:
+        if rest < size:
+            worst = name
+            break
+        rest -= size
+    print(f"{label}: losses {losses} vs one device {ref_losses}: max rel {rel:.3e} (limit "
+          f"{TRAIN_LOSS_REL}); params max|d| {dmax / cmax:.3e} of the largest change (limit "
+          f"{TRAIN_PARAM_REL}; at {worst}, whose own change is {change.abs()[at].item():.3e}), "
+          f"L2 {dl2 / cl2:.3e} of the change's (limit {TRAIN_PARAM_L2})", flush=True)
+    if not (all(math.isfinite(v) for v in losses) and rel <= TRAIN_LOSS_REL
+            and dmax <= TRAIN_PARAM_REL * cmax and dl2 <= TRAIN_PARAM_L2 * cl2):
+        raise AssertionError(f"{label}: the data-parallel run differs from the one-device run")
+
+
+def _flat_params(model) -> torch.Tensor:
+    return torch.cat([p.detach().float().flatten().cpu() for p in model.parameters()])
+
+
+def _train_runs(dev, batches, mesh):
+    """DP_STEPS steps of phase 9's train model on one device and over
+    ``mesh``: (one-device (losses, params, initial params), the DP run's
+    losses, params, launches per step, ms per DP step, ms per one-device step)."""
+    runs = {}
+    for name, m in (("one", None), ("dp", mesh)):
+        model = diag_train.train_model(dev, seed=0)
+        p0 = _flat_params(model)
+        state = training.create_sr_state(model, TrainingConfig(**DP_CFG), DP_STEPS + 1)
+        step = training.make_sr_train_step(model, mesh=m)
+        losses, launches = [], []
+        for lr, hr in batches:
+            dispatch.reset_launches()
+            _s, metrics = step(state, lr, hr)
+            losses.append(metrics["loss"].item())
+            launches.append(dict(dispatch.launches))
+        params = _flat_params(model)
+        runs[name] = (losses, params, p0, launches, median_ms(lambda: step(state, *batches[0])))
+    return runs
+
+
+def dp_spec_arrays(dev, batches):
+    """Phase 9's seeded train model and the batches, for ``run_cases``, and
+    the model's parameters' (name, size) list."""
+    model = diag_train.train_model(dev, seed=0)
+    arrays = _launch.state_arrays("train", model)
+    for i, (lr, hr) in enumerate(batches):
+        arrays[f"x/lr_{i}"], arrays[f"x/hr_{i}"] = lr.cpu().numpy(), hr.cpu().numpy()
+    return arrays, [(k, p.numel()) for k, p in model.named_parameters()]
+
+
+def run_nccl_world1(dev, card: str, model, frames, ref, batches, layout) -> dict:
+    """14a and the first half of 14c: NCCL at world size 1, in this process."""
+    try:  # a second NCCL rank on a one-card host raises before any group forms
+        init_distributed("nccl", "file:///nonexistent", 2, torch.cuda.device_count(), "cuda")
+    except RuntimeError as e:
+        print(f"14a a second NCCL rank on this host: refused ({e})", flush=True)
+    else:
+        raise AssertionError("a second NCCL rank on one card was not refused")
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("nccl", f"file://{tmp}/init", 1, 0, "cuda")
+        try:
+            mesh = make_mesh(device="cuda")
+            print(f"14a NCCL world 1: mesh {mesh.shape}, backend "
+                  f"{torch.distributed.get_backend(mesh.group('model'))}", flush=True)
+            dispatch.reset_launches()
+            out = spatial_sr_apply(model, frames, mesh, halo=SPATIAL_HALO)
+            torch.cuda.synchronize()
+            _launch_rule("14a sharded flagship call", dispatch.launches, SPATIAL_LAUNCHES)
+            check_interior("14a sharded flagship 1080p->2160p, NCCL world 1", out, ref,
+                           SPATIAL_EDGE, 1)
+            ms = median_ms(lambda: spatial_sr_apply(model, frames, mesh, halo=SPATIAL_HALO))
+            runs = _train_runs(dev, batches, mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+    losses, params, _p0, launches, dp_ms = runs["dp"]
+    for lc in launches:
+        _launch_rule("14c data-parallel step (NCCL world 1)", lc, TRAIN_LAUNCHES)
+    _dp_against_one_device("14c data-parallel step, NCCL world 1", losses, params,
+                           runs["one"][:3], layout)
+    return {"sharded_ms": ms, "dp_ms": dp_ms, "one_step_ms": runs["one"][4],
+            "one": runs["one"][:3]}
+
+
+def spatial_cases(world: int, train: bool) -> list:
+    model = [1, 1, world]
+    cases = [{"name": "sr", "fn": "sr", "mesh": model, "input": "frames", "halo": SPATIAL_HALO,
+              "reps": SPATIAL_REPS},
+             {"name": "light", "fn": "light", "model": "light", "mesh": model,
+              "input": "lframe", "halo": LIGHT_HALO, "layout": "packed", "reps": SPATIAL_REPS},
+             {"name": "stream", "fn": "stream", "mesh": model, "input": "video",
+              "halo": SPATIAL_HALO}]
+    if train:
+        cases.append({"name": "train", "fn": "train", "model": "train", "mesh": [world, 1, 1],
+                      "input": "lr", "target": "hr", "steps": DP_STEPS, "cfg": DP_CFG,
+                      "steps_per_epoch": DP_STEPS + 1, "reps": SPATIAL_REPS})
+    return cases
+
+
+def run_ranks(world: int, backend: str, spec: dict, arrays: dict, refs: dict, one,
+              train: bool, layout=()) -> dict:
+    """14b (and 14c's second half, 14d): ``world`` spawned ranks of
+    ``run_cases``; every rank's launches and rank 0's gathered outputs
+    checked."""
+    label = f"14 {world} {backend} ranks"
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = dict(spec, cases=spatial_cases(world, train))
+        spec_dir = _launch.write_spec(tmp, spec, arrays)
+        t0 = time.perf_counter()
+        _launch.spawn(_launch.run_cases, world, backend, "cuda", args=(str(spec_dir),),
+                      timeout=600)
+        wall = time.perf_counter() - t0
+        res = torch.load(Path(spec_dir) / "result.pt")
+    print(f"{label}: spawned and run in {wall:.1f} s; launches of rank 0 "
+          f"{ {k: r['launches'][0] for k, r in res.items()} }", flush=True)
+    for rank in range(world):
+        _launch_rule(f"{label} sharded flagship, rank {rank}", res["sr"]["launches"][rank],
+                     SPATIAL_LAUNCHES)
+        _launch_rule(f"{label} sharded lightweight, rank {rank}",
+                     res["light"]["launches"][rank], LIGHT_LAUNCHES)
+        st = res["stream"]["launches"][rank]
+        if (st.get("rdb") != 8 * STREAM_FRAMES or st.get("correlation") != STREAM_FRAMES
+                or not st.get("conv_chain")):
+            raise AssertionError(f"{label} streaming, rank {rank}: launches {st}")
+    check_interior(f"{label} sharded flagship", res["sr"]["out"], refs["sr"], SPATIAL_EDGE, 1)
+    check_interior(f"{label} sharded lightweight packed", res["light"]["out"], refs["light"],
+                   LIGHT_EDGE, 1)
+    check_interior(f"{label} sharded streaming x{STREAM_FRAMES}", res["stream"]["out"],
+                   refs["stream"], SPATIAL_EDGE, 2)
+    out = {"sharded_ms": res["sr"]["ms"], "light_ms": res["light"]["ms"]}
+    if train:
+        tr = res["train"]
+        if not tr["ranks_equal"]:
+            raise AssertionError(f"{label}: the ranks' parameters differ after the steps")
+        for rank, steps in enumerate(tr["launches"]):
+            for lc in steps:
+                _launch_rule(f"{label} data-parallel step, rank {rank}", lc, TRAIN_LAUNCHES)
+        params = torch.cat([tr["state"][k].float().flatten() for k, _ in layout])
+        _dp_against_one_device(f"{label} data-parallel step, {diag_train.BATCH // world} "
+                               "samples a rank", [m["loss"] for m in tr["metrics"]], params,
+                               one, layout)
+        out["dp_ms"] = tr["ms"]
+    return out
+
+
+def run_multidevice_phase(dev, card: str) -> None:
+    """Phase 14."""
+    model = seeded_model(dev, seed=0)
+    light = seeded_lightweight(dev, seed=1)
+    shapes = {"frames": (1, 3, H, W, 3), "lframe": (1, H, W, 3),
+              "video": (1, STREAM_FRAMES, H, W, 3)}
+    rand = {name: [10 + i, list(shape)] for i, (name, shape) in enumerate(shapes.items())}
+    x = {name: _seeded_rand(shape, seed).to(dev) for name, (seed, shape) in rand.items()}
+    refs = {"sr": model(x["frames"]), "light": light(x["lframe"], "packed"),
+            "stream": enhance_video_streaming(model, x["video"])}
+    one_ms = median_ms(lambda: model(x["frames"]))
+    batches = diag_train.train_batches(dev, DP_STEPS)
+    train_arrays, layout = dp_spec_arrays(dev, batches)
+    a = run_nccl_world1(dev, card, model, x["frames"], refs["sr"], batches, layout)
+    arrays = {**_launch.state_arrays("sr", model), **_launch.state_arrays("light", light),
+              **train_arrays}
+    spec = {"models": {"sr": {"kind": "sr", "config": SERVE_CONFIG, "dtype": "bfloat16"},
+                       "light": {"kind": "lightweight", "config": {"scale_factor": 2},
+                                 "dtype": "bfloat16"},
+                       "train": {"kind": "sr", "config": TRAIN_CONFIG, "dtype": "bfloat16"}},
+            "rand": rand}
+    refs = {k: v.cpu() for k, v in refs.items()}
+    del x
+    two = run_ranks(2, "gloo", spec, arrays, refs, a["one"], train=True, layout=layout)
+    four = run_ranks(4, "gloo", spec, arrays, refs, a["one"], train=False)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        n = min(4, cards)
+        run_ranks(n, "nccl", spec, arrays, refs, a["one"], train=True, layout=layout)
+        print(f"14d NCCL, one rank a card on {n} cards: passed", flush=True)
+    else:
+        print(f"14d not run: {cards} card; NCCL takes one card a rank (a second rank on one "
+              "card is refused, 14a), so the exchange between ranks ran on gloo ranks "
+              "sharing the card (14b, 14c)", flush=True)
+    print(f"14 sharded flagship 1080p->2160p bf16, ms per frame (rank 0's call, ranks in step; "
+          f"median of {SPATIAL_REPS}): one device {one_ms:.2f}, 1 rank NCCL {a['sharded_ms']:.2f}, "
+          f"2 gloo ranks {two['sharded_ms']:.2f}, 4 gloo ranks {four['sharded_ms']:.2f}; "
+          f"lightweight packed 2 ranks {two['light_ms']:.2f}, 4 ranks {four['light_ms']:.2f}; "
+          f"ranks sharing one card measure no scaling; on {card}", flush=True)
+    print(f"14 data-parallel step 64/8 bf16 batch {diag_train.BATCH} "
+          f"{diag_train.LR_SIZE}^2->{2 * diag_train.LR_SIZE}^2, ms per step: one device "
+          f"{a['one_step_ms']:.2f}, NCCL world 1 {a['dp_ms']:.2f}, 2 gloo ranks (half the "
+          f"batch each) {two['dp_ms']:.2f}; ranks sharing one card measure no scaling; on "
+          f"{card}", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -2595,6 +2872,8 @@ def main() -> int:
         run_recovery_phase(dev, card)
     with phase("abr and mlops"):
         run_abr_phase(dev, card)
+    with phase("multi-device"):
+        run_multidevice_phase(dev, card)
     if args.profile:
         with phase("profile"):
             diag_recovery.profile_step(dev, Path(args.profile))

@@ -25,20 +25,31 @@ The int8 state of a quantised conv-chain site lives in buffers under the
 name of the flax ``"quant"`` collection's entry (``qhead``, ``qflow``,
 ``qattn``, ``qconv``), in the JAX wire format (``ops.conv_chain_int8``),
 and keeps its weights packed for the int8 kernel (``QuantState.packed``).
+
+Two contexts carry the multi-device paths (``nerve_tpu_torch.parallel``)
+into the layers. Under ``data_parallel(model, group)`` the live BatchNorm
+statistics are those of the global batch: each rank's per-channel sums
+go through ``all_reduce_sum`` and are divided by the global count, as XLA
+computes them under the JAX package's sharded ``jit``. ``CBAM.spatial(group,
+halo)`` makes the channel attention's global pool that of the whole
+height-sharded frame (the JAX modules' ``spatial_axis``/``spatial_halo``).
+Outside them nothing changes.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from nerve_tpu_torch import ops
 from nerve_tpu_torch.ops import conv_chain_int8
+from nerve_tpu_torch.parallel.collectives import all_reduce_sum
 
 BN_EPS = 1e-5
 CHAIN_QUANT_MODES = ("off", "serve", "calibrate")
@@ -210,10 +221,13 @@ class QuantizableConv(ConvParams):
 
 
 class BNParams(nn.Module):
-    """BatchNorm parameters (scale, bias) and running statistics (mean, var)."""
+    """BatchNorm parameters (scale, bias) and running statistics (mean, var);
+    ``group``, the process group its live statistics reduce over
+    (``data_parallel``), or None."""
 
     def __init__(self, features: int, device=None):
         super().__init__()
+        self.group = None
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = zeros_param((features,), device)
         self.register_buffer("mean", torch.zeros(features, device=device))
@@ -261,17 +275,46 @@ def batch_norm(x: torch.Tensor, bn: "BNParams", dtype: torch.dtype) -> torch.Ten
     return y.sub_(bn.mean).mul_(mul).add_(bn.bias).to(dtype)
 
 
+@contextlib.contextmanager
+def data_parallel(module: nn.Module, group):
+    """Within the context every live BatchNorm under ``module`` takes its
+    statistics over ``group``'s global batch (every rank holding an equal
+    shard); ``group=None`` leaves them per batch. The setting before is
+    restored after."""
+    bns = [m for m in module.modules() if isinstance(m, BNParams)]
+    saved = [bn.group for bn in bns]
+    for bn in bns:
+        bn.group = group
+    try:
+        yield module
+    finally:
+        for bn, g in zip(bns, saved):
+            bn.group = g
+
+
+def batch_means(xs: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The per-channel means of each of ``xs`` over every axis but the last:
+    of this batch, or with ``group`` of the global batch (the local sums
+    through one ``all_reduce_sum``, over the global count)."""
+    axes = tuple(range(xs[0].dim() - 1))
+    if group is None:
+        return [x.mean(axes) for x in xs]
+    count = xs[0].numel() // xs[0].shape[-1] * dist.get_world_size(group)
+    sums = all_reduce_sum(torch.stack([x.sum(axes) for x in xs]), group)
+    return list((sums / count).unbind(0))
+
+
 def batch_norm_train(x: torch.Tensor, bn: "BNParams", dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.BatchNorm(use_running_average=False, momentum=0.9,
     dtype=dtype)`` under autograd: the batch's statistics in float32 (at
     least: float64 for float64 input, as flax promotes) over
     every axis but the last, the variance flax's ``E[x²] - E[x]²`` clipped
     at 0 (biased), ``(x - mean) · (rsqrt(var + eps) · scale) + bias`` cast to
-    ``dtype``; the running statistics become ``0.9 · old + 0.1 · batch``."""
+    ``dtype``; the running statistics become ``0.9 · old + 0.1 · batch``.
+    Under ``data_parallel`` the statistics are the global batch's."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    axes = tuple(range(x.dim() - 1))
-    m = xf.mean(axes)
-    v = torch.clamp((xf * xf).mean(axes) - m * m, min=0.0)
+    m, sq = batch_means([xf, xf * xf], bn.group)
+    v = torch.clamp(sq - m * m, min=0.0)
     with torch.no_grad():
         bn.mean.copy_(0.9 * bn.mean + 0.1 * m)
         bn.var.copy_(0.9 * bn.var + 0.1 * v)
@@ -359,8 +402,8 @@ class DepthwiseSeparableConv(nn.Module):
         y = conv_nhwc(x.to(dt), self.depthwise.kernel, padding=1, groups=x.shape[-1])
         y = conv_nhwc(y, self.pointwise.kernel)
         yf = y.to(torch.promote_types(dt, torch.float32))  # at least float32
-        m = yf.mean(dim=(0, 1, 2))
-        v = (yf - m).square().mean(dim=(0, 1, 2))
+        (m,) = batch_means([yf], bn.group)
+        (v,) = batch_means([(yf - m).square()], bn.group)
         with torch.no_grad():
             bn.mean.copy_(0.9 * bn.mean + 0.1 * m)
             bn.var.copy_(0.9 * bn.var + 0.1 * v)
@@ -406,19 +449,39 @@ class PixelShuffleUpsampler(nn.Module):
 
 
 class ChannelAttention(nn.Module):
-    """SE-style channel attention: pool → Dense → relu → Dense → sigmoid."""
+    """SE-style channel attention: pool → Dense → relu → Dense → sigmoid.
+
+    With ``spatial`` set to (group, halo) the input is a rank's slab of a
+    height-sharded frame, extended by ``halo`` rows each side: the pool is
+    the float32 sum of the slab's own rows over the group (the halo rows
+    left out, so no row counts twice), divided by the frame's row count
+    times W and cast to x's dtype, as the JAX module's ``spatial_axis``
+    path computes it."""
 
     def __init__(self, channels: int, reduction: int = 16,
                  dtype: torch.dtype = torch.float32, device=None, generator=None):
         super().__init__()
         self.dtype = dtype
+        self.spatial = None
         mid = max(1, channels // reduction)
         self.Dense_0 = KernelParams((channels, mid), device, generator)
         self.Dense_1 = KernelParams((mid, channels), device, generator)
 
+    def pool(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) → (B, C): this frame's mean, or the sharded frame's."""
+        if self.spatial is None:
+            return ops.global_avg_pool(x)
+        group, halo = self.spatial
+        interior = x[..., halo:x.shape[-3] - halo, :, :]
+        local = interior.to(torch.float32).sum(dim=(-3, -2))
+        rows = local.new_full((1,), float(interior.shape[-3]))
+        total = all_reduce_sum(torch.cat([local.flatten(), rows]), group)
+        nrows = total[-1]
+        return (total[:-1].reshape(local.shape) / (nrows * x.shape[-2])).to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        y = ops.global_avg_pool(x).to(dt)
+        y = self.pool(x).to(dt)
         y = torch.relu(y @ self.Dense_0.kernel.to(dt))
         y = torch.sigmoid(y @ self.Dense_1.kernel.to(dt))
         return x * y[:, None, None, :]
@@ -453,6 +516,18 @@ class CBAM(nn.Module):
         self.ChannelAttention_0 = ChannelAttention(channels, reduction, dtype,
                                                    device, generator)
         self.SpatialAttention_0 = SpatialAttention(7, dtype, device, generator)
+
+    @contextlib.contextmanager
+    def spatial(self, group, halo: int):
+        """Within the context, inputs are slabs of a frame sharded by height
+        over ``group``, ``halo`` rows each side (see ``ChannelAttention``);
+        the setting before is restored after."""
+        att = self.ChannelAttention_0
+        saved, att.spatial = att.spatial, (group, halo)
+        try:
+            yield self
+        finally:
+            att.spatial = saved
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.SpatialAttention_0(self.ChannelAttention_0(x))

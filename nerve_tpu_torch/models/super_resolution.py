@@ -37,6 +37,12 @@ losses of ``nerve_tpu_torch.continual``). The epilogue's clamp is
 ``minimum(maximum(·, 0), 1)``, ``jnp.clip``'s gradient of ½ at a bound.
 
 The models are built on the card unless the caller passes ``device="cpu"``.
+
+``SuperResolutionNet.spatial(group, halo)`` is the JAX modules'
+``spatial_axis``/``spatial_halo`` clone as a context on the model itself:
+within it the forward takes a rank's halo-extended slab of a height-sharded
+frame (``nerve_tpu_torch.parallel.spatial``) and the CBAM pool is the whole
+frame's; the weights are the model's own, not a copy.
 """
 
 from __future__ import annotations
@@ -297,6 +303,13 @@ class SuperResolutionNet(nn.Module):
     @property
     def num_frames(self) -> int:
         return 2 * self.temporal_window + 1
+
+    def spatial(self, group, halo: int):
+        """A context within which the forward takes slabs of frames sharded
+        by height over ``group``, extended by ``halo`` rows each side: the
+        temporal aggregator's CBAM pools the whole frame (``CBAM.spatial``);
+        the setting before is restored after."""
+        return self.temporal_aggregator.refine.spatial(group, halo)
 
     def extract_features(self, frames: torch.Tensor) -> torch.Tensor:
         """(N, H, W, C) frames → (N, H, W, F) features."""

@@ -11,20 +11,30 @@ Synthetic LR 64² / HR 128² sets (``utils.data.make_sr_dataset``, seeded
 from ``--seed``), ``SuperResolutionNet`` in the config's compute dtype with
 float32 master weights, ``training.fit_sr`` with a checkpoint per epoch and
 resume from ``--checkpoint-dir``. It runs on the card unless ``--device
-cpu``; the JAX script's multi-device mesh is not ported. ``--config`` reads
-a JSON or YAML file (YAML needs PyYAML).
+cpu``. ``--config`` reads a JSON or YAML file (YAML needs PyYAML).
+
+Launched by ``torchrun`` (``WORLD_SIZE`` set) it trains data parallel, as
+the JAX script does over ``best_data_mesh``: each rank joins the process
+group (NCCL on the card, one card a rank; gloo with ``--device cpu``),
+takes ``best_data_mesh(batch_size)`` and its rows of every batch; only rank
+0 prints and writes checkpoints::
+
+    torchrun --nproc-per-node 4 -m nerve_tpu_torch.train_baseline --epochs 10
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import torch
+import torch.distributed as dist
 
 from nerve_tpu_torch import training
 from nerve_tpu_torch.config import load_config
 from nerve_tpu_torch.models import SuperResolutionNet
+from nerve_tpu_torch.parallel import best_data_mesh, init_distributed
 from nerve_tpu_torch.utils import data as data_lib
 from nerve_tpu_torch.utils.checkpoint import CheckpointManager
 
@@ -50,6 +60,11 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
+    mesh, device = None, args.device
+    if "WORLD_SIZE" in os.environ:  # launched by torchrun
+        device = init_distributed(device=args.device)
+        mesh = best_data_mesh(args.batch_size, device=device.type)
+    lead = mesh is None or dist.get_rank() == 0
     cfg = load_config(args.config, overrides={
         "training.epochs": args.epochs,
         "training.batch_size": args.batch_size,
@@ -59,19 +74,27 @@ def main(argv=None):
         scale_factor=args.scale, num_features=args.num_features,
         num_residual_blocks=args.num_blocks, temporal_window=args.temporal_window,
         dtype=torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32,
-        device=args.device, generator=torch.Generator().manual_seed(args.seed))
+        device=device, generator=torch.Generator().manual_seed(args.seed))
     dev = next(model.parameters()).device
-    print(f"device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}",
-          flush=True)
+    if lead:
+        ranks = ("" if mesh is None
+                 else f", {dist.get_world_size()} ranks (data {mesh.size('data')})")
+        print(f"device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}"
+              f"{ranks}", flush=True)
     # Synthetic sets of the reference's shapes (LR 64², HR 128², 500 / 100).
     g = torch.Generator().manual_seed(args.seed)
     train_data = data_lib.make_sr_dataset(g, args.train_samples, args.lr_size, args.scale)
     val_data = data_lib.make_sr_dataset(g, args.val_samples, args.lr_size, args.scale)
     ckpt = CheckpointManager(args.checkpoint_dir, cfg.checkpoint.keep_last_n)
     _state, history = training.fit_sr(model, train_data, val_data, cfg.training,
-                                      model.num_frames, seed=args.seed, ckpt_manager=ckpt)
+                                      model.num_frames, mesh=mesh, seed=args.seed,
+                                      ckpt_manager=ckpt)
     ckpt.close()
-    print(json.dumps({"best_psnr": history["best_psnr"], "final_psnr": history["final_psnr"]}))
+    if mesh is not None:
+        dist.destroy_process_group()
+    if lead:
+        print(json.dumps({"best_psnr": history["best_psnr"],
+                          "final_psnr": history["final_psnr"]}))
     return history
 
 

@@ -7,12 +7,22 @@ live in the ``nn.Module``, the optimiser is a ``torch.optim`` one driven by
 the optax schedule and clipping rule (``create_optimizer``), and a step is
 the model's training-mode forward under autograd (the kernel ops as
 ``torch.autograd.Function``s, ``ops.dispatch``), ``loss.backward()`` and the
-update. ``fit_sr`` is the baseline loop with checkpoint and resume. The
-multi-device mesh of the JAX loop is not ported.
+update. ``fit_sr`` is the baseline loop with checkpoint and resume.
+
+With a mesh (``nerve_tpu_torch.parallel.make_mesh``) the step is data
+parallel over its ``data`` axis, as the JAX step is under a sharded
+``jit``: each rank takes its ``shard_batch`` rows of the global batch, the
+live BatchNorm statistics are the global batch's
+(``layers.data_parallel``), the gradients are averaged over the ``data``
+group before the global-norm clip and the update (so every rank holds the
+same parameters to the bit), and the loss, the PSNR and the evaluation
+metrics are the global batch's. ``fit_sr`` then writes checkpoints and logs
+on rank 0 only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -23,9 +33,11 @@ import torch
 import torch.nn as nn
 
 from nerve_tpu_torch.config.schema import TrainingConfig
-from nerve_tpu_torch.models.layers import batch_stats
+from nerve_tpu_torch.models.layers import batch_stats, data_parallel
+from nerve_tpu_torch.parallel import collectives
+from nerve_tpu_torch.parallel.mesh import gather_batch, shard_batch
 from nerve_tpu_torch.utils import data as data_lib
-from nerve_tpu_torch.utils.metrics import msssim_levels_for, psnr, vmaf_proxy
+from nerve_tpu_torch.utils.metrics import msssim_levels_for, mse, psnr, psnr_of_mse, vmaf_proxy
 
 F32 = np.float32
 
@@ -187,7 +199,18 @@ def create_sr_state(model: nn.Module, cfg: TrainingConfig,
     return TrainState(model, create_optimizer(cfg, model.parameters(), steps_per_epoch))
 
 
-def make_sr_train_step(model: nn.Module, loss_kind: str = "mse",
+@torch.no_grad()
+def average_gradients_(params, group) -> None:
+    """Replace each gradient by its mean over ``group`` (one all-reduce of
+    the flattened gradients)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = collectives.all_reduce_(torch.cat([g.flatten() for g in grads]), group)
+    flat /= torch.distributed.get_world_size(group)
+    for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(v.view_as(g))
+
+
+def make_sr_train_step(model: nn.Module, loss_kind: str = "mse", mesh=None,
                        extra_loss: Optional[Callable] = None) -> Callable:
     """The SR train step: (state, lr_frames, hr) → (state, metrics).
 
@@ -196,12 +219,18 @@ def make_sr_train_step(model: nn.Module, loss_kind: str = "mse",
     (a dict of the named parameters; the continual-learning penalties hook in
     here), backward, update. ``metrics`` holds the loss and the PSNR as
     tensors on the device (no host sync). Profiler ranges ``train.forward``,
-    ``train.backward`` and ``train.optimizer`` mark the parts."""
+    ``train.backward`` and ``train.optimizer`` mark the parts.
+
+    With ``mesh`` the step is data parallel over its ``data`` axis (see the
+    module doc): ``lr_frames`` and ``hr`` are this rank's ``shard_batch``
+    rows, and the metrics are the global batch's."""
     record = torch.profiler.record_function
+    group = None if mesh is None else mesh.group("data")
 
     def step(state: TrainState, lr_frames: torch.Tensor, hr: torch.Tensor):
         model.train()
-        with record("train.forward"):
+        global_stats = contextlib.nullcontext() if group is None else data_parallel(model, group)
+        with record("train.forward"), global_stats:
             out = model(lr_frames)
             loss = pixel_loss(out, hr, loss_kind)
             if extra_loss is not None:
@@ -210,28 +239,45 @@ def make_sr_train_step(model: nn.Module, loss_kind: str = "mse",
         with record("train.backward"):
             loss.backward()
         with record("train.optimizer"):
+            if group is not None:
+                average_gradients_(state.optimizer.params(), group)
             state.optimizer.apply(state.step)
         state.step += 1
         with torch.no_grad():
-            metrics = {"loss": loss.detach(), "psnr": psnr(out.detach(), hr)}
-        return state, metrics
+            if group is None:
+                return state, {"loss": loss.detach(), "psnr": psnr(out.detach(), hr)}
+            both = torch.stack([loss.detach(), mse(out.detach(), hr)])
+            loss, err = collectives.all_reduce_(both, group) / torch.distributed.get_world_size(
+                group)
+        return state, {"loss": loss, "psnr": psnr_of_mse(err)}
 
     return step
 
 
-def make_sr_eval_step(model: nn.Module) -> Callable:
+def make_sr_eval_step(model: nn.Module, mesh=None) -> Callable:
     """The SR eval step: (state, lr_frames, hr) → {"mse", "psnr", "vmaf"}
-    (tensors), the model in eval mode under ``torch.inference_mode``."""
+    (tensors), the model in eval mode under ``torch.inference_mode``. With
+    ``mesh``, ``lr_frames`` and ``hr`` are this rank's rows and the metrics
+    those of the global batch (the outputs gathered over ``data``)."""
 
     def evaluate(state: TrainState, lr_frames: torch.Tensor, hr: torch.Tensor):
         model.eval()
         with torch.inference_mode():
             out = model(lr_frames)
+            if mesh is not None:
+                out, hr = gather_batch((out, hr), mesh)
             levels = msssim_levels_for(hr.shape[1], hr.shape[2])
             return {"mse": torch.mean((out.float() - hr.float()) ** 2),
                     "psnr": psnr(out, hr), "vmaf": vmaf_proxy(out, hr, levels=levels)}
 
     return evaluate
+
+
+@torch.no_grad()
+def broadcast_module_(model: nn.Module, group) -> None:
+    """Every parameter and buffer of ``model`` from the group's first rank."""
+    for t in list(model.parameters()) + list(model.buffers()):
+        collectives.broadcast_(t.data, group)
 
 
 def _mean(values) -> float:
@@ -240,8 +286,8 @@ def _mean(values) -> float:
 
 def fit_sr(model: nn.Module, train_data: Dict[str, np.ndarray],
            val_data: Dict[str, np.ndarray], cfg: TrainingConfig, num_frames: int,
-           seed: int = 0, log_fn: Callable[[str], None] = print, ckpt_manager=None,
-           ckpt_every: int = 1) -> Tuple[TrainState, Dict[str, Any]]:
+           mesh=None, seed: int = 0, log_fn: Callable[[str], None] = print,
+           ckpt_manager=None, ckpt_every: int = 1) -> Tuple[TrainState, Dict[str, Any]]:
     """The baseline SR training loop on ``model``'s device and weights.
 
     Datasets with ``"lr_win"`` (N, T, h, w, C) are used as they are, plain
@@ -253,24 +299,38 @@ def fit_sr(model: nn.Module, train_data: Dict[str, np.ndarray],
     gives one eval pass. Each epoch shuffles with
     ``np.random.default_rng(seed + start_epoch)``'s stream. The history has
     ``best_psnr``, ``final_psnr``, ``final_vmaf``, ``final_loss`` and
-    ``losses``, this run's loss at every step."""
+    ``losses``, this run's loss at every step.
+
+    With ``mesh`` every rank holds the whole data set and the same seed,
+    takes its ``shard_batch`` rows of each batch and steps data parallel
+    (``make_sr_train_step``); the model's weights are broadcast from the
+    ``data`` group's first rank at the start, and only global rank 0 logs
+    and writes checkpoints (every rank reads one to resume)."""
     device = next(model.parameters()).device
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    if mesh is not None:
+        broadcast_module_(model, mesh.group("data"))
+        log_fn = log_fn if lead else (lambda _s: None)
+
+    def place(x):
+        x = torch.from_numpy(x)
+        return x.to(device) if mesh is None else shard_batch(x, mesh)
 
     def window(batch):
         if "lr_win" in batch:
-            return torch.from_numpy(batch["lr_win"]).to(device)
-        return data_lib.expand_temporal(torch.from_numpy(batch["lr"]).to(device), num_frames)
+            return place(batch["lr_win"])
+        return data_lib.expand_temporal(place(batch["lr"]), num_frames)
 
     def evaluate_all():
-        val = [eval_step(state, window(b), torch.from_numpy(b["hr"]).to(device))
+        val = [eval_step(state, window(b), place(b["hr"]))
                for b in data_lib.batches(val_data, cfg.batch_size)]
         return _mean([m["psnr"] for m in val]), _mean([m["vmaf"] for m in val])
 
     n_train = len(train_data["lr_win" if "lr_win" in train_data else "lr"])
     steps_per_epoch = max(1, n_train // cfg.batch_size)
     state = create_sr_state(model, cfg, steps_per_epoch)
-    train_step = make_sr_train_step(model, cfg.losses.pixel_loss_type)
-    eval_step = make_sr_eval_step(model)
+    train_step = make_sr_train_step(model, cfg.losses.pixel_loss_type, mesh)
+    eval_step = make_sr_eval_step(model, mesh)
 
     start_epoch, best_psnr = 0, -1.0
     if ckpt_manager is not None and ckpt_manager.latest_step() is not None:
@@ -294,7 +354,7 @@ def fit_sr(model: nn.Module, train_data: Dict[str, np.ndarray],
         best_psnr = max(best_psnr, val_psnr)
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.perf_counter()
-        losses = [train_step(state, window(b), torch.from_numpy(b["hr"]).to(device))[1]["loss"]
+        losses = [train_step(state, window(b), place(b["hr"]))[1]["loss"]
                   for b in data_lib.batches(train_data, cfg.batch_size, rng=rng)]
         val_psnr, val_vmaf = evaluate_all()
         history["losses"] += [float(v) for v in losses]
@@ -302,7 +362,7 @@ def fit_sr(model: nn.Module, train_data: Dict[str, np.ndarray],
         best_psnr = max(best_psnr, val_psnr)
         log_fn(f"epoch {epoch + 1}/{cfg.epochs}: loss={train_loss:.5f} "
                f"val_psnr={val_psnr:.2f}dB ({time.perf_counter() - t0:.1f}s)")
-        if ckpt_manager is not None and (epoch + 1) % ckpt_every == 0:
+        if lead and ckpt_manager is not None and (epoch + 1) % ckpt_every == 0:
             ckpt_manager.save(epoch + 1, {**state.state_dict(), "best_psnr": best_psnr})
     history.update(best_psnr=best_psnr, final_psnr=val_psnr, final_vmaf=val_vmaf,
                    final_loss=train_loss)

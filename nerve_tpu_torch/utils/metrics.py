@@ -31,10 +31,14 @@ def mae(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(pred.float() - target.float()))
 
 
+def psnr_of_mse(err: torch.Tensor, data_range: float = 1.0) -> torch.Tensor:
+    """Peak signal-to-noise ratio in dB of a mean squared error."""
+    return 10.0 * torch.log10(data_range**2 / torch.clamp(err, min=1e-12))
+
+
 def psnr(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0) -> torch.Tensor:
     """Peak signal-to-noise ratio in dB."""
-    err = mse(pred, target)
-    return 10.0 * torch.log10(data_range**2 / torch.clamp(err, min=1e-12))
+    return psnr_of_mse(mse(pred, target), data_range)
 
 
 def _gaussian_kernel(size: int, sigma: float, device) -> torch.Tensor:

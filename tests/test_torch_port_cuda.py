@@ -63,7 +63,10 @@ and the lightweight model's train steps against float64: the kernel
 route's error within 2x of the plain route's. The recovery net's train
 step on the card against the CPU. ABR and MLOps (plain PyTorch): the
 batched streaming env, a PPO update and the MMD drift score on the card
-against the CPU at ``diag.abr``'s limits.
+against the CPU at ``diag.abr``'s limits. The multi-device paths
+(``nerve_tpu_torch.parallel``; one card takes one NCCL rank): the sharded
+flagship and the data-parallel step at NCCL world size 1 against one card,
+and two gloo ranks sharing the card serving the lightweight model sharded.
 """
 
 import importlib
@@ -1437,3 +1440,100 @@ def test_drift_mmd_card_vs_cpu(cuda):
     from nerve_tpu_torch.diag import abr as diag_abr
 
     assert diag_abr.drift_ok(diag_abr.drift_against_cpu(cuda, 600, 16, reps=1))
+
+
+def _nccl_world1(tmp_path):
+    from nerve_tpu_torch import parallel
+
+    parallel.init_distributed("nccl", f"file://{tmp_path / 'init'}", 1, 0, "cuda")
+    return parallel.make_mesh(device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spatial_sr_nccl_world1(cuda, tmp_path, dtype):
+    """``spatial_sr_apply`` at NCCL world size 1 (the halos zero, the CBAM
+    pool's all-reduce real; one card takes one NCCL rank): a seeded flagship
+    (16 features, 2 RDBs, flow ½), 72 × 40 frames, halo 16; the same
+    launches as the one-card forward, the interior rows (2·24 from each
+    edge) within the RDB's level of its output."""
+    import torch.distributed as dist
+
+    from nerve_tpu_torch.models import SuperResolutionNet
+    from nerve_tpu_torch.parallel import spatial_sr_apply
+
+    model = diag_conv.seed_all(SuperResolutionNet(
+        scale_factor=2, num_features=16, num_residual_blocks=2, temporal_window=1,
+        flow_downsample=2, dtype=dtype, device=cuda).eval(), 3)
+    frames = torch.rand((1, 3, 72, 40, 3), generator=torch.Generator().manual_seed(4)).to(cuda)
+    dispatch.reset_launches()
+    want = model(frames)
+    one = dict(dispatch.launches)
+    mesh = _nccl_world1(tmp_path)
+    try:
+        dispatch.reset_launches()
+        got = spatial_sr_apply(model, frames, mesh, halo=16)
+        assert dict(dispatch.launches) == one and one["rdb"] == 2
+    finally:
+        dist.destroy_process_group()
+    r = 2 * 24
+    _check("rdb", got[:, r:-r], want[:, r:-r], dtype)
+
+
+@pytest.mark.cuda
+def test_data_parallel_step_nccl_world1(cuda, tmp_path):
+    """The data-parallel train step at NCCL world size 1 against the
+    one-card step (a seeded 16 / 2 flagship in bfloat16, batch 4, 32²; 3
+    steps): the launches of each step equal, the losses within 1e-3
+    relative, the parameters within 5e-2 of the change in L2."""
+    import torch.distributed as dist
+
+    from nerve_tpu_torch import training
+    from nerve_tpu_torch.diag import train as diag_train
+
+    batches = diag_train.train_batches(cuda, 3, lr_size=32, batch=4)
+    runs = {}
+    mesh = _nccl_world1(tmp_path)
+    try:
+        for name, m in (("one", None), ("dp", mesh)):
+            model = diag_train.train_model(cuda, seed=2, features=16, blocks=2)
+            p0 = torch.cat([p.detach().flatten() for p in model.parameters()])
+            state, _ = diag_train.step_fn(model, steps=4)
+            step = training.make_sr_train_step(model, mesh=m)
+            losses, launches = [], []
+            for lr, hr in batches:
+                dispatch.reset_launches()
+                losses.append(step(state, lr, hr)[1]["loss"].item())
+                launches.append(dict(dispatch.launches))
+            runs[name] = (losses, launches, p0,
+                          torch.cat([p.detach().flatten() for p in model.parameters()]))
+    finally:
+        dist.destroy_process_group()
+    (l1, c1, p0, q1), (l2, c2, _p, q2) = runs["one"], runs["dp"]
+    assert c1 == c2 and c1[0]["rdb"] == 2
+    assert all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(l2, l1))
+    assert (q2 - q1).norm() <= 5e-2 * (q1 - p0).norm()
+
+
+@pytest.mark.cuda
+def test_spatial_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two gloo ranks on the one card (``parallel.launch.run_cases``): the
+    seeded bfloat16 lightweight model height-sharded, ``"packed"``, against
+    the one-card forward on the interior rows, 1 ``d2s_packed`` a rank."""
+    from nerve_tpu_torch.parallel import launch
+
+    light = diag_conv.seeded_lightweight(cuda, 5)
+    frame = torch.rand((1, 96, 64, 3), generator=torch.Generator().manual_seed(6))
+    want = light(frame.to(cuda), "packed").cpu()
+    spec = {"models": {"light": {"kind": "lightweight", "config": {"scale_factor": 2},
+                                 "dtype": "bfloat16"}},
+            "cases": [{"name": "light", "fn": "light", "model": "light", "mesh": [1, 1, 2],
+                       "input": "frame", "halo": 8, "layout": "packed"}]}
+    spec_dir = launch.write_spec(tmp_path, spec, {**launch.state_arrays("light", light),
+                                                  "x/frame": frame.numpy()})
+    launch.spawn(launch.run_cases, 2, "gloo", "cuda", args=(str(spec_dir),), timeout=300)
+    res = torch.load(spec_dir / "result.pt")["light"]
+    assert all(lc.get("d2s_packed") == 1 for lc in res["launches"]), res["launches"]
+    got = res["out"]
+    assert got.shape == want.shape
+    _check("conv_chain", got[:, 16:-16], want[:, 16:-16], torch.bfloat16)

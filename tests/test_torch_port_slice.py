@@ -114,6 +114,10 @@ SERVING_MODULES = (
     "nerve_tpu_torch.federated.server", "nerve_tpu_torch.federated.simulation",
     "nerve_tpu_torch.federated.transport", "nerve_tpu_torch.train_federated",
     "nerve_tpu_torch.diag.federated",
+    "nerve_tpu_torch.parallel", "nerve_tpu_torch.parallel.collectives",
+    "nerve_tpu_torch.parallel.dryrun", "nerve_tpu_torch.parallel.launch",
+    "nerve_tpu_torch.parallel.mesh", "nerve_tpu_torch.parallel.spatial",
+    "nerve_tpu_torch.diag.spatial",
 )
 
 
